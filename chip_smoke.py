@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA card (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Run from the repository root (it puts ``src`` on ``sys.path`` itself and
+imports only ``repro_torch``).  Phases, each of which ends the run with a
+non-zero exit code if it fails:
+
+1. card and build — CUDA must be present; prints the card's name and power
+   limit and builds every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+2. kernels — each kernel's wrapper against its plain PyTorch version on the
+   card, bitwise, at the main path's shape, a ragged shape and overrunning
+   starts; times both with CUDA events beside the kernel's bound;
+3. main path — ``repro_torch.bench.run_batch`` on the paper's default cell
+   (n=10 jobs x k=4 tasks, M=5 homogeneous, AU-SA, S=1, carbon objective,
+   1500-epoch windows, SA pop 96 x 150 iterations) at 1000 instances, with
+   the launch counts read around it; every schedule must be validator-clean
+   and every saving >= 0;
+4. layers — where the main path's time goes, per layer, with CUDA events,
+   and the device's busy share over one fitness evaluation from
+   ``torch.profiler``;
+5. reference — the same small solve on the card and on the CPU, fed the
+   same random draws, must agree.
+
+The last three lines are the ``kernels`` JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
+INSTANCES = 1000                # the paper's batch size
+KERNEL_REPS = 20
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps: int, flush=None) -> float:
+    """Median ms of ``fn()`` over ``reps`` runs, each between two CUDA
+    events, after two warm-up runs; ``flush()`` runs before each."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def kernel_phase(dev) -> dict:
+    """schedule_delta vs schedule_delta_ref, bitwise, and their times."""
+    import torch
+    from repro_torch.kernels.ref import schedule_delta_ref
+    from repro_torch.kernels.schedule_eval import schedule_delta
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def case(B, P, T, H, lo, hi):
+        start = torch.randint(lo, hi, (B, P, T), generator=g, device=dev,
+                              dtype=torch.int32)
+        dur = torch.randint(0, 60, (B, P, T), generator=g, device=dev,
+                            dtype=torch.int32)
+        inten = torch.rand((B, H), generator=g, device=dev) * 400.0
+        cum = torch.zeros((B, H + 1), device=dev)
+        cum[:, 1:] = torch.cumsum(inten * 0.25, dim=1)
+        return start, dur, cum
+
+    shapes = {
+        "main": (INSTANCES, 96, 40, 1500, 0, 1400),
+        "ragged": (7, 13, 37, 333, 0, 300),
+        "overrun": (5, 9, 11, 100, -150, 260),
+    }
+    max_err = 0.0
+    for name, shape in shapes.items():
+        start, dur, cum = case(*shape)
+        out = schedule_delta(start, dur, cum)
+        ref = schedule_delta_ref(start, dur, cum)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        max_err = max(max_err, err)
+        check(out.shape == ref.shape and torch.equal(out, ref),
+              f"schedule_delta != schedule_delta_ref at the {name} shape "
+              f"{shape[:4]} (max |diff| {err})")
+        print(f"kernel schedule_delta {name} {tuple(shape[:4])}: bitwise "
+              "equal to the plain version", flush=True)
+
+    start, dur, cum = case(*shapes["main"])
+    scratch = torch.empty(200 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():                        # 200 MB write evicts the 50 MB L2
+        scratch.zero_()
+
+    ms = time_cuda(lambda: schedule_delta(start, dur, cum), KERNEL_REPS,
+                   flush)
+    plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, cum),
+                         KERNEL_REPS, flush)
+    n = start.numel()
+    moved = n * (4 + 4 + 4) + cum.numel() * 4   # start, dur in; out; cum
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"kernel schedule_delta main shape: {ms:.4f} ms (L2 flushed), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({moved / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+    return {"name": "schedule_delta", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/schedule_eval.cu",
+            "replaces": "src/repro/kernels/schedule_eval.py:76",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def main_path(dev) -> dict:
+    """run_batch on the paper cell; launch counts read around it."""
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    setup = bench.BenchSetup(instances=INSTANCES)
+    cfg = bench.SA_FAST
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    r = bench.run_batch(setup, device=dev)
+    launches = dict(LAUNCHES)
+    want = 1 + cfg.iters + cfg.iters // cfg.migrate_every
+    check(launches.get("schedule_eval", 0) == want,
+          f"schedule_eval launched {launches.get('schedule_eval', 0)} times "
+          f"on the main path, expected {want} (phase 2: init + "
+          f"{cfg.iters} iterations + migrations)")
+    for k in ("opt_makespan", "carbon_savings", "energy_savings",
+              "baseline_carbon", "optimized_carbon", "utilization"):
+        check(r[k].shape == (INSTANCES,) and np.all(np.isfinite(r[k])),
+              f"{k}: shape {r[k].shape} or non-finite values")
+    check(not r["baseline_violations"].any(),
+          f"{int((r['baseline_violations'] != 0).sum())} baseline schedules "
+          "violate the validator")
+    check(not r["optimized_violations"].any(),
+          f"{int((r['optimized_violations'] != 0).sum())} optimized "
+          "schedules violate the validator or the deadline")
+    check(bool(np.all(r["carbon_savings"] >= 0)), "negative carbon savings")
+    peak = torch.cuda.max_memory_allocated(dev)
+    row = bench.summarize(r)
+    print(f"main path: run_batch {INSTANCES} instances, {cfg}: "
+          f"{r['seconds']:.3f} s wall; schedule_eval launches "
+          f"{launches.get('schedule_eval', 0)}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print("main path summary: " + json.dumps(row), flush=True)
+    return {"launches": launches, "seconds": r["seconds"]}
+
+
+def layer_phase(dev, wall_s: float) -> None:
+    """Per-layer times at the main path's shape, scaled by their calls."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.core import decoder, validate
+    from repro_torch.core.solvers import TorchDraws, common
+    from repro_torch.kernels import ops
+
+    cfg = bench.SA_FAST
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=INSTANCES), dev)
+    draws = TorchDraws(1, dev)
+    L = batch.lead + (cfg.pop,)
+    prio = draws.normal(L + (batch.T,))
+    assign = common.random_allowed_assign(draws, batch, (cfg.pop,))
+    deadline = torch.full(batch.lead, 200, dtype=torch.int32, device=dev)
+    dec = decoder.sgs(batch, prio, assign, "fixed")
+    swept = decoder.timing_sweep(batch, dec.start, dec.assign, cum, deadline,
+                                 cfg.sweeps)
+    evals = 1 + cfg.iters + cfg.iters // cfg.migrate_every
+    layers = [
+        ("phase 1 fitness (sgs earliest_finish + makespan)", evals,
+         lambda: common.population_fitness(batch, cum, 1 << 27, prio, assign,
+                                           "makespan", "earliest_finish", 0)),
+        ("phase 2 fitness (all of it)", evals,
+         lambda: common.population_fitness(batch, cum, deadline, prio, assign,
+                                           "carbon", "fixed", cfg.sweeps)),
+        ("  sgs fixed", evals,
+         lambda: decoder.sgs(batch, prio, assign, "fixed")),
+        ("  timing_sweep (2 sweeps)", evals,
+         lambda: decoder.timing_sweep(batch, dec.start, dec.assign, cum,
+                                      deadline, cfg.sweeps)),
+        ("  population_carbon (schedule_eval + combine)", evals,
+         lambda: ops.population_carbon(batch, swept, dec.assign, cum)),
+        ("  validator (total_violations)", evals,
+         lambda: validate.total_violations(batch, swept, dec.assign,
+                                           deadline)),
+    ]
+    print(f"layers at B={INSTANCES}, Pop={cfg.pop}, T={batch.T}, "
+          f"H={cum.shape[-1] - 1} (CUDA events, median of 3):", flush=True)
+    total = 0.0
+    for name, calls, fn in layers:
+        ms = time_cuda(fn, 3)
+        if not name.startswith("  "):
+            total += ms * calls
+        print(f"  {name}: {ms:.3f} ms x {calls} calls = "
+              f"{ms * calls / 1e3:.3f} s", flush=True)
+    print(f"  sum of the two fitness layers {total / 1e3:.3f} s of the "
+          f"{wall_s:.3f} s run_batch wall; the rest is the SA loop, the "
+          "final decodes and host overhead", flush=True)
+
+    # Device busy share over one evaluation of each phase, from the trace.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    traced = {
+        "phase-1": lambda: common.population_fitness(
+            batch, cum, 1 << 27, prio, assign, "makespan",
+            "earliest_finish", 0),
+        "phase-2": lambda: common.population_fitness(
+            batch, cum, deadline, prio, assign, "carbon", "fixed",
+            cfg.sweeps),
+    }
+    for label, fn in traced.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("repro_torch.")]
+        busy_us, end = 0.0, float("-inf")
+        for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels):
+            busy_us += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        if busy_us <= 0:
+            print(f"profiler, {label}: no device time recorded; busy share "
+                  "not measured", flush=True)
+            continue
+        print(f"profiler, one {label} fitness evaluation: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+              f"({100 * busy_us / 1e3 / wall_ms:.1f}%), {len(kernels)} "
+              "kernels", flush=True)
+        for e in prof.key_averages():
+            if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
+                dev_ms = (getattr(e, "device_time_total", None)
+                          or getattr(e, "cuda_time_total", 0)) / 1e3
+                print(f"  {e.key}: {dev_ms:.3f} ms device, "
+                      f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
+        by_name: dict[str, list] = {}
+        for e in kernels:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        for name, ts in sorted(by_name.items(),
+                               key=lambda kv: -sum(kv[1]))[:5]:
+            print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
+                  f"{len(ts)} launches", flush=True)
+
+
+def reference_phase(dev) -> None:
+    """Small inputs on the card against the same inputs on the CPU.
+
+    Decoded schedules must be equal and fitness allclose (rtol 1e-6: the
+    two devices sum in different orders).  A whole small solve fed the
+    same draws must give the same phase-1 result (its fitness is an
+    integer makespan, so no rounding can steer it); phase 2 compares
+    floats and may part on a one-ulp tie, so it is held to the validator
+    and to savings >= 0 on both devices.
+    """
+    import torch
+    from repro_torch import bench
+    from repro_torch.core import decoder
+    from repro_torch.core.instance import PackedInstance
+    from repro_torch.core.solvers import (SAConfig, TorchDraws, common,
+                                          solve_bilevel_batch)
+    from repro_torch.core.validate import total_violations
+
+    class Moved:
+        """Draws made on the CPU, handed over on ``device``."""
+
+        def __init__(self, device):
+            self.src = TorchDraws(7, "cpu")
+            self.device = device
+
+        def __getattr__(self, kind):
+            fn = getattr(self.src, kind)
+            return lambda *a: fn(*a).to(self.device)
+
+    setup = bench.BenchSetup(n_jobs=4, k_tasks=3, n_machines=3, instances=6,
+                             stretch=1.5, seed=5)
+    cfg = SAConfig(pop=16, iters=12, migrate_every=5)
+    batch, cum = bench.paper_batch(setup, "cpu")
+    draws = TorchDraws(3, "cpu")
+    prio = draws.normal(batch.lead + (cfg.pop, batch.T))
+    assign = common.random_allowed_assign(draws, batch, (cfg.pop,))
+    deadline = torch.full(batch.lead, 90, dtype=torch.int32)
+    res = {}
+    for d in ("cpu", dev):
+        b = PackedInstance(*(f.to(d) for f in batch))
+        args = (b, cum.to(d), deadline.to(d), prio.to(d), assign.to(d))
+        dec = decoder.sgs(b, prio.to(d), assign.to(d), "fixed")
+        swept = decoder.timing_sweep(b, dec.start, dec.assign, cum.to(d),
+                                     deadline.to(d), cfg.sweeps)
+        fit = common.population_fitness(*args, "carbon", "fixed", cfg.sweeps)
+        sol = solve_bilevel_batch(b, cum.to(d), Moved(d),
+                                  stretch=setup.stretch, cfg1=cfg)
+        for name, r in (("baseline", sol.baseline),
+                        ("optimized", sol.optimized)):
+            dl = sol.deadline if name == "optimized" else None
+            check(not total_violations(b, r.start, r.assign, dl).any(),
+                  f"{name} schedules on {d} violate the validator")
+        check(bool((sol.carbon_savings >= 0).all()),
+              f"negative savings on {d}")
+        res[str(d)] = [x.cpu() for x in (swept, fit, sol.opt_makespan,
+                                         sol.deadline, sol.baseline.start,
+                                         sol.baseline.assign,
+                                         sol.carbon_savings)]
+    cpu, card = res["cpu"], res[str(dev)]
+    names = ("timing-swept starts", "fitness", "phase-1 OPT", "deadline",
+             "baseline starts", "baseline assignment")
+    for name, a, b in zip(names, cpu, card):
+        same = (torch.allclose(a, b, rtol=1e-6, atol=0)
+                if a.is_floating_point() else torch.equal(a, b))
+        check(same, f"card != CPU on {name}")
+    print("reference: decode, fitness and phase 1 on the card equal the CPU "
+          "on 6 small instances; phase-2 savings |card - CPU| max "
+          f"{float((cpu[-1] - card[-1]).abs().max()):.3g}", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no card")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        raise SmokeFailure(f"no src/repro_torch beside {__file__}: run it "
+                           "from a checkout of the repository")
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import build
+
+    card = nvidia_smi()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    lib = build.build("schedule_eval", verbose=True)
+    print(f"build: schedule_eval.cu -> {os.path.relpath(lib, ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    kernel = kernel_phase(dev)
+    main = main_path(dev)
+    kernel["launches"] = main["launches"].get("schedule_eval", 0)
+    layer_phase(dev, main["seconds"])
+    reference_phase(dev)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kernel[k] for k in keys}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,14 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+  schedule_eval — per-task carbon-trace deltas of candidate schedules
+                  (CUDA, ``csrc/schedule_eval.cu``; feeds
+                  ``ops.population_carbon``, the SA/GA fitness hot loop)
+
+Each kernel: its CUDA source under ``csrc/``, a wrapper module that
+checks its inputs, launches it and counts launches (``build.LAUNCHES``),
+a plain version in ``ref.py``, and a public op in ``ops.py``.
+"""
+from repro_torch.kernels.build import LAUNCHES, reset_launches
+from repro_torch.kernels.ops import population_carbon
+
+__all__ = ["LAUNCHES", "population_carbon", "reset_launches"]

@@ -1,0 +1,57 @@
+"""Guards on the port's boundaries.
+
+* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither
+  ``jax`` nor anything of the reference package ``repro``: the card's
+  machine has no JAX, and the port keeps its own copies.
+* Entry points run on the card unless asked for the CPU: without a card,
+  calling one with no ``device`` raises instead of running on the CPU.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch import bench
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and _forbidden(str(node.args[0].value))):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_whole_port():
+    names = {p.name for p in PORT_FILES}
+    assert {"decoder.py", "annealing.py", "bilevel.py", "schedule_eval.py",
+            "bench.py", "chip_smoke.py"} <= names
+    assert _forbidden("jax.numpy") and _forbidden("repro.core")
+    assert not _forbidden("repro_torch.core")
+
+
+def test_run_batch_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_batch(bench.BenchSetup(instances=1))
