@@ -8,19 +8,30 @@ imports only ``repro_torch``).  Phases, each of which ends the run with a
 non-zero exit code if it fails:
 
 1. card and build — CUDA must be present; prints the card's name and power
-   limit and builds every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   limit and builds every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together;
 2. kernels — each kernel's wrapper against its plain PyTorch version on the
-   card, bitwise, at the main path's shape, a ragged shape and overrunning
-   starts; times both with CUDA events beside the kernel's bound;
+   card, bitwise: ``schedule_delta`` at the main path's shape, a ragged
+   shape and overrunning starts; ``gate_quantile`` at the online sweep's
+   shape (6000 rows x 768 epochs), a ragged shape (max_window 200 > 128,
+   ties) and an edge shape (theta 0 and 1, window 1, E < window).  Times
+   both with CUDA events (L2 flushed) beside each kernel's bound and a
+   one-call library yardstick where there is one;
 3. main path — ``repro_torch.bench.run_batch`` on the paper's default cell
    (n=10 jobs x k=4 tasks, M=5 homogeneous, AU-SA, S=1, carbon objective,
    1500-epoch windows, SA pop 96 x 150 iterations) at 1000 instances, with
    the launch counts read around it; every schedule must be validator-clean
    and every saving >= 0;
-4. layers — where the main path's time goes, per layer, with CUDA events,
+4. online path — ``repro_torch.bench.run_online`` (the online cell without
+   its bound) at 1000 instances x 12 gate policies x 768 epochs, with the
+   launch counts read around it: ``gate_quantile`` launched once, every
+   greedy and gated row fully scheduled and validator-clean, the first 16
+   instances equal to the numpy oracle in all 16 x 13 cells and to the
+   port run on the CPU;
+5. layers — where the main path's time goes, per layer, with CUDA events,
    and the device's busy share over one fitness evaluation from
    ``torch.profiler``;
-5. reference — the same small solve on the card and on the CPU, fed the
+6. reference — the same small solve on the card and on the CPU, fed the
    same random draws, must agree.
 
 The last three lines are the ``kernels`` JSON record, the card's name and
@@ -39,8 +50,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 INSTANCES = 1000                # the paper's batch size
 KERNEL_REPS = 20
+ORACLE_INSTANCES = 16           # online cells held to the numpy oracle
 
 
 class SmokeFailure(Exception):
@@ -78,6 +91,13 @@ def time_cuda(fn, reps: int, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def l2_flush(dev):
+    """A function that evicts the 50 MB L2 by writing 200 MB."""
+    import torch
+    scratch = torch.empty(200 * 2**20, dtype=torch.uint8, device=dev)
+    return scratch.zero_
 
 
 def kernel_phase(dev) -> dict:
@@ -119,11 +139,7 @@ def kernel_phase(dev) -> dict:
               "equal to the plain version", flush=True)
 
     start, dur, cum = case(*shapes["main"])
-    scratch = torch.empty(200 * 2**20, dtype=torch.uint8, device=dev)
-
-    def flush():                        # 200 MB write evicts the 50 MB L2
-        scratch.zero_()
-
+    flush = l2_flush(dev)
     ms = time_cuda(lambda: schedule_delta(start, dur, cum), KERNEL_REPS,
                    flush)
     plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, cum),
@@ -139,6 +155,113 @@ def kernel_phase(dev) -> dict:
             "replaces": "src/repro/kernels/schedule_eval.py:76",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def gate_cases(dev) -> dict:
+    """gate_quantile inputs ``(intensity, theta, window, max_window)``.
+
+    main: the online sweep's gate rows — the 1000 paper forecasts of
+    ``bench.online_batch`` x thetas 0.3/0.4/0.5 x windows 48/96, laid out
+    as ``sweep_policies`` lays them out; ragged: 7 rows x 257 epochs,
+    windows up to max_window 200 > 128, per-epoch thetas, ties injected;
+    edge: theta 0 and 1, window 1, and windows wider than E.
+    """
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers import online_torch
+
+    _, _, inten, _ = bench.online_batch(
+        bench.BenchSetup(stretch=1.5, instances=INSTANCES), dev)
+    rows = online_torch.gate_rows(
+        inten, torch.tensor(bench.ONLINE_THETAS, device=dev),
+        torch.tensor(bench.ONLINE_WINDOWS, dtype=torch.int32, device=dev))
+    E = inten.shape[-1]
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    ragged = torch.rand((7, 257), generator=g) * 800 + 50
+    ragged[:, ::5] = ragged[:, :1]
+    edge = torch.rand((4, 40), generator=g) * 800 + 50
+    return {
+        "main": (rows[0].reshape(-1, E).contiguous(),
+                 rows[1].reshape(-1, E).contiguous(),
+                 rows[2].reshape(-1).contiguous(),
+                 max(bench.ONLINE_WINDOWS)),
+        "ragged": (ragged.to(dev), torch.rand((7, 257), generator=g).to(dev),
+                   torch.tensor([1, 17, 48, 96, 128, 150, 200],
+                                dtype=torch.int32, device=dev), 200),
+        "edge": (edge.to(dev),
+                 torch.tensor([0.0, 1.0, 0.0, 1.0])[:, None]
+                 .expand(4, 40).contiguous().to(dev),
+                 torch.tensor([1, 1, 64, 64], dtype=torch.int32, device=dev),
+                 64),
+    }
+
+
+def nan_windows(intensity, window, max_window):
+    """The windows of every epoch, NaN past their end: ``[R, E, W]``."""
+    import torch
+    R, E = intensity.shape
+    off = torch.arange(max_window, device=intensity.device)
+    idx = torch.arange(E, device=intensity.device)[:, None] + off
+    valid = (off < window[:, None, None]) & (idx < E)
+    return torch.where(valid, intensity[:, idx.clamp_max(E - 1)],
+                       float("nan"))
+
+
+def gate_kernel_phase(dev) -> dict:
+    """gate_quantile_stats vs gate_quantile_stats_ref, bitwise, and times
+    of the kernel, the plain version and torch.nanquantile."""
+    import torch
+    from repro_torch.kernels.gate_quantile import gate_quantile_stats
+    from repro_torch.kernels.ref import gate_quantile_stats_ref
+
+    flush = l2_flush(dev)
+    record = None
+    for name, (inten, theta, window, mw) in gate_cases(dev).items():
+        got = gate_quantile_stats(inten, theta, window, mw)
+        want = gate_quantile_stats_ref(inten, theta, window, mw)
+        torch.cuda.synchronize()
+        same = all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(got, want))
+        fin = torch.isfinite(want[0]) & torch.isfinite(want[1])
+        err = max(float(torch.where(fin, (got[i] - want[i]).abs(), 0.0).max())
+                  for i in (0, 1))
+        check(same, f"gate_quantile != gate_quantile_stats_ref at the {name} "
+              f"shape {tuple(inten.shape)} (max |diff| {err})")
+        R, E = inten.shape
+        reps = KERNEL_REPS if name == "main" else 5
+        ms = time_cuda(lambda: gate_quantile_stats(inten, theta, window, mw),
+                       reps, flush)
+        plain_ms = time_cuda(
+            lambda: gate_quantile_stats_ref(inten, theta, window, mw),
+            reps, flush)
+        qs = torch.unique(theta)
+        q = qs if qs.numel() <= 8 else torch.tensor(0.5, device=dev)
+        padded = nan_windows(inten, window, mw)
+        library_ms = time_cuda(lambda: torch.nanquantile(padded, q, dim=-1),
+                               reps, flush)
+        del padded
+        moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
+        ops = 2 * int(want[2].sum())        # a linear-time selection's
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"kernel gate_quantile {name} (R={R}, E={E}, max_window={mw}): "
+              f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
+              f"flushed), plain {plain_ms:.4f} ms, torch.nanquantile over "
+              f"NaN-padded windows (q={q.tolist()}) {library_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({moved / 1e6:.3f} MB at 3.35 TB/s "
+              f"= {bytes_ms:.6f} ms; {ops / 1e9:.6f} G compares at 67 T/s "
+              f"= {ops_ms:.6f} ms)", flush=True)
+        if name == "main":
+            record = {"name": "gate_quantile", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/gate_quantile.cu",
+                      "replaces": "src/repro/kernels/gate_quantile.py:96",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+    return record
 
 
 def main_path(dev) -> dict:
@@ -177,6 +300,112 @@ def main_path(dev) -> dict:
           f"{launches.get('schedule_eval', 0)}; peak device memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
     print("main path summary: " + json.dumps(row), flush=True)
+    return {"launches": launches, "seconds": r["seconds"]}
+
+
+def online_path(dev) -> dict:
+    """run_online at 1000 instances x 12 policies; launch counts read
+    around it; the first instances held to the numpy oracle and to the
+    port on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers.online import (online_carbon_gated,
+                                                 online_greedy)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    setup = bench.BenchSetup(stretch=1.5, instances=INSTANCES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    r = bench.run_online(setup, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches.get("gate_quantile", 0) == 1,
+          f"gate_quantile launched {launches.get('gate_quantile', 0)} times "
+          "in the online sweep, expected once")
+    P = r["policies"][0].shape[0]
+    check(P == 12, f"{P} policies, expected 12")
+    check(r["unscheduled_greedy"] == 0 and r["unscheduled_gated"] == 0,
+          f"{r['unscheduled_greedy']} greedy and {r['unscheduled_gated']} "
+          "gated tasks not scheduled within the horizon")
+    check(not r["greedy_violations"].any(),
+          f"{int((r['greedy_violations'] != 0).sum())} greedy schedules "
+          "violate the validator")
+    check(not r["gated_violations"].any(),
+          f"{int((r['gated_violations'] != 0).sum())} gated schedules "
+          "violate the validator")
+    check(r["savings"].shape == (INSTANCES, P)
+          and bool(np.all(np.isfinite(r["savings"]))),
+          f"savings: shape {r['savings'].shape} or non-finite values")
+    print(f"online path: run_online {INSTANCES} instances x {P} policies x "
+          f"{bench.SIM_HORIZON} epochs: sweep {r['seconds']:.3f} s "
+          f"(synchronised), whole call {wall:.3f} s; gate_quantile launches "
+          f"{launches.get('gate_quantile', 0)}; all rows scheduled and "
+          f"validator-clean; peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+
+    # The numpy oracle, cell by cell, on the first instances.
+    res = r["result"]
+    th, wi, sx = r["policies"]
+    k = ORACLE_INSTANCES
+    card = {name: getattr(part, field)[:k].cpu().numpy()
+            for name, part, field in (
+                ("gs", res.greedy, "start"), ("ga", res.greedy, "assign"),
+                ("cs", res.gated, "start"), ("ca", res.gated, "assign"))}
+    budget = res.budget[:k].cpu().numpy()
+    inten = r["intensity"][:k].cpu().numpy()
+    t0 = time.perf_counter()
+    for b in range(k):
+        p, w = r["packs"][b], inten[b]
+        s0, a0 = online_greedy(p)
+        check(np.array_equal(s0, card["gs"][b])
+              and np.array_equal(a0, card["ga"][b]),
+              f"greedy schedule of instance {b} != the numpy oracle")
+        dur = p.dur.numpy()
+        ms0 = int(max(s0[t] + dur[t, a0[t]] for t in range(p.T)
+                      if bool(p.task_mask[t])))
+        for j in range(P):
+            bud = int(float(sx[j]) * ms0)
+            check(bud == budget[b, j], f"budget of ({b}, {j}): card "
+                  f"{budget[b, j]}, oracle {bud}")
+            sg, ag = online_carbon_gated(p, w, theta=float(th[j]),
+                                         window=int(wi[j]), budget=bud)
+            check(np.array_equal(sg, card["cs"][b, j])
+                  and np.array_equal(ag, card["ca"][b, j]),
+                  f"gated schedule of ({b}, policy {j}) != the numpy oracle")
+    oracle_s = time.perf_counter() - t0
+
+    # The same instances through the port on the CPU.
+    cpu = bench.run_online(dataclasses.replace(setup, instances=k), "cpu")
+    for part in ("greedy", "gated"):
+        for field in ("start", "assign", "scheduled"):
+            x = getattr(getattr(res, part), field)[:k].cpu()
+            check(torch.equal(x, getattr(getattr(cpu["result"], part),
+                                         field)),
+                  f"card != CPU on the {part} {field} of {k} instances")
+    check(np.array_equal(budget, cpu["result"].budget.numpy()),
+          "card != CPU on the budgets")
+    print(f"online path: {k} instances x {P + 1} cells equal the numpy "
+          f"oracle ({oracle_s:.1f} s) and the port on the CPU", flush=True)
+    # Where the sweep's time goes: one more sweep under the profiler.
+    from repro_torch.core.solvers import online_torch
+    profile_busy(f"one online sweep ({INSTANCES} x {P})",
+                 lambda: online_torch.sweep_policies(
+                     r["batch"], r["intensity"], bench.ONLINE_THETAS,
+                     bench.ONLINE_WINDOWS, bench.ONLINE_STRETCHES,
+                     device=dev))
+    rows = bench.online_summary(r)
+    for row in rows:
+        print("online summary: " + json.dumps(
+            {key: row[key] for key in ("theta", "window", "stretch",
+                                       "online_gated_savings_pct",
+                                       "online_makespan_ratio")}),
+            flush=True)
     return {"launches": launches, "seconds": r["seconds"]}
 
 
@@ -231,51 +460,60 @@ def layer_phase(dev, wall_s: float) -> None:
           "final decodes and host overhead", flush=True)
 
     # Device busy share over one evaluation of each phase, from the trace.
+    profile_busy("one phase-1 fitness evaluation",
+                 lambda: common.population_fitness(
+                     batch, cum, 1 << 27, prio, assign, "makespan",
+                     "earliest_finish", 0))
+    profile_busy("one phase-2 fitness evaluation",
+                 lambda: common.population_fitness(
+                     batch, cum, deadline, prio, assign, "carbon", "fixed",
+                     cfg.sweeps))
+
+
+def profile_busy(label: str, fn) -> None:
+    """Wall time, device busy time and the heaviest kernels of one call of
+    ``fn``, from a ``torch.profiler`` trace (kernels only, overlapping
+    intervals merged)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    traced = {
-        "phase-1": lambda: common.population_fitness(
-            batch, cum, 1 << 27, prio, assign, "makespan",
-            "earliest_finish", 0),
-        "phase-2": lambda: common.population_fitness(
-            batch, cum, deadline, prio, assign, "carbon", "fixed",
-            cfg.sweeps),
-    }
-    for label, fn in traced.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("repro_torch.")]
-        busy_us, end = 0.0, float("-inf")
-        for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                             for e in kernels):
-            busy_us += max(0.0, hi - max(lo, end))
-            end = max(end, hi)
-        if busy_us <= 0:
-            print(f"profiler, {label}: no device time recorded; busy share "
-                  "not measured", flush=True)
-            continue
-        print(f"profiler, one {label} fitness evaluation: wall "
-              f"{wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-              f"({100 * busy_us / 1e3 / wall_ms:.1f}%), {len(kernels)} "
-              "kernels", flush=True)
-        for e in prof.key_averages():
-            if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
-                dev_ms = (getattr(e, "device_time_total", None)
-                          or getattr(e, "cuda_time_total", 0)) / 1e3
-                print(f"  {e.key}: {dev_ms:.3f} ms device, "
-                      f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
-        by_name: dict[str, list] = {}
-        for e in kernels:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        for name, ts in sorted(by_name.items(),
-                               key=lambda kv: -sum(kv[1]))[:5]:
-            print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("repro_torch.")]
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in kernels):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    if busy_us <= 0:
+        print(f"profiler, {label}: no device time recorded; busy share "
+              "not measured", flush=True)
+        return
+    print(f"profiler, {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%), "
+          f"{len(kernels)} kernels", flush=True)
+    for e in prof.key_averages():
+        if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
+            dev_ms = (getattr(e, "device_time_total", None)
+                      or getattr(e, "cuda_time_total", 0)) / 1e3
+            print(f"  {e.key}: {dev_ms:.3f} ms device, "
+                  f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]:
+        print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
+              f"{len(ts)} launches", flush=True)
+    for name, ts in by_name.items():        # the port's own kernels
+        if "gate_quantile" in name or "schedule_delta" in name:
+            print(f"  port kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
                   f"{len(ts)} launches", flush=True)
 
 
@@ -364,19 +602,24 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    lib = build.build("schedule_eval", verbose=True)
-    print(f"build: schedule_eval.cu -> {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    libs = build.build_all(verbose=True)
+    for name, lib in libs.items():
+        print(f"build: {name}.cu -> {os.path.relpath(lib, ROOT)}", flush=True)
+    print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    kernel = kernel_phase(dev)
+    kernels = [kernel_phase(dev), gate_kernel_phase(dev)]
     main = main_path(dev)
-    kernel["launches"] = main["launches"].get("schedule_eval", 0)
+    kernels[0]["launches"] = main["launches"].get("schedule_eval", 0)
+    online = online_path(dev)
+    kernels[1]["launches"] = online["launches"].get("gate_quantile", 0)
     layer_phase(dev, main["seconds"])
     reference_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kernel[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

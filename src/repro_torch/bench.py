@@ -1,13 +1,16 @@
-"""The paper benchmark on the port: Figs. 4-7 and Tables 1a/1b.
+"""The paper benchmark on the port: Figs. 4-7, Tables 1a/1b, and online.
 
 The counterpart of ``benchmarks/common.py``'s ``run_batch``/``summarize``
-and of the per-figure modules beside it.  Each cell solves a batch of
-paper instances with the bi-level protocol (phase 1 optimal makespan,
-phase 2 carbon/energy under ``makespan <= S x OPT``); the same
-``BenchSetup`` seed gives the same instances and carbon windows as the
-reference's harness.
+and of the per-figure modules beside it.  Each paper cell solves a batch
+of paper instances with the bi-level protocol (phase 1 optimal makespan,
+phase 2 carbon/energy under ``makespan <= S x OPT``); the ``online`` cell
+(``benchmarks/online_vs_offline.py``) sweeps the online carbon-gated
+dispatcher over a gate-policy grid and sets it beside the S=1.5 bound.
+The same ``BenchSetup`` seed gives the same instances and carbon windows
+as the reference's harness.
 
     python -m repro_torch.bench --only fig5 --instances 1000 [--device cuda]
+    python -m repro_torch.bench --only online --instances 1000
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -29,7 +32,9 @@ import torch
 from repro_torch.core.carbon import synthesize
 from repro_torch.core.instance import (PackedInstance, generate_instance,
                                        pack, stack_packed)
+from repro_torch.core.objectives import evaluate
 from repro_torch.core.solvers import SAConfig, TorchDraws, solve_bilevel_batch
+from repro_torch.core.solvers.online_torch import policy_grid, sweep_policies
 from repro_torch.core.validate import total_violations
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -246,11 +251,141 @@ def table1b(instances, device):
             for k in (3, 4, 5)]
 
 
+# ---------------------------------------------------------------------------
+# The online cell (benchmarks/online_vs_offline.py): the price of online.
+# ---------------------------------------------------------------------------
+
+# Gate-policy grid: 3 x 2 x 2 = 12 combinations per instance.
+ONLINE_THETAS = (0.3, 0.4, 0.5)
+ONLINE_WINDOWS = (48, 96)
+ONLINE_STRETCHES = (1.25, 1.5)
+
+# Forecast/simulation horizon (epochs), generously above any greedy online
+# makespan at this instance size, so every dispatch completes (checked).
+SIM_HORIZON = 768
+
+
+def online_batch(setup: BenchSetup,
+                 device: str | torch.device = DEFAULT_DEVICE
+                 ) -> tuple[list[PackedInstance], PackedInstance,
+                            torch.Tensor, torch.Tensor]:
+    """The online cell's instances and ``SIM_HORIZON``-epoch windows.
+
+    Drawn from the same numpy stream, in the same order, as the
+    reference's ``online_vs_offline.run``.  Returns the single instances
+    (on the CPU, for the numpy oracle), their batch, intensity ``[B, E]``
+    and cumulative traces ``[B, E+1]``, the last three on ``device``.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(setup.seed)
+    year = synthesize(setup.region, days=366, seed=2024)
+    pad = setup.n_jobs * setup.k_tasks
+    packs, intens, cums = [], [], []
+    for _ in range(setup.instances):
+        inst = generate_instance(rng, n_jobs=setup.n_jobs,
+                                 k_tasks=setup.k_tasks,
+                                 n_machines=setup.n_machines)
+        packs.append(pack(inst, pad_tasks=pad, device="cpu"))
+        w = year.window(int(rng.integers(0, year.n_epochs - SIM_HORIZON)),
+                        SIM_HORIZON)
+        intens.append(w.intensity)
+        cums.append(w.cumulative())
+    batch = PackedInstance(*(f.to(dev) for f in stack_packed(packs)))
+    return (packs, batch, torch.as_tensor(np.stack(intens), device=dev),
+            torch.as_tensor(np.stack(cums), device=dev))
+
+
+def run_online(setup: BenchSetup,
+               device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The online cell without the bound: instances -> sweep -> validator
+    -> savings of every policy against the greedy baseline.
+
+    ``seconds`` is the sweep alone, synchronised.  Savings are
+    ``1 - carbon(gated) / carbon(greedy)`` per (instance, policy).  The
+    inputs come back too: the single instances (CPU), the batch and its
+    intensity and cumulative traces (on ``device``).
+    """
+    dev = resolve_device(device)
+    packs, batch, inten, cum = online_batch(setup, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = sweep_policies(batch, inten, ONLINE_THETAS, ONLINE_WINDOWS,
+                         ONLINE_STRETCHES, device=dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+
+    def host(x):
+        return x.cpu().numpy()
+
+    real = batch.task_mask
+    base = evaluate(batch, res.greedy.start, res.greedy.assign, cum)
+    gated = evaluate(batch, res.gated.start, res.gated.assign, cum)
+    return {
+        "setup": setup,
+        "seconds": dt,
+        "packs": packs,
+        "batch": batch,
+        "intensity": inten,
+        "cum": cum,
+        "result": res,
+        "policies": policy_grid(ONLINE_THETAS, ONLINE_WINDOWS,
+                                ONLINE_STRETCHES),
+        "unscheduled_greedy": int((~res.greedy.scheduled & real).sum()),
+        "unscheduled_gated": int((~res.gated.scheduled
+                                  & real[:, None, :]).sum()),
+        "greedy_violations": host(total_violations(
+            batch, res.greedy.start, res.greedy.assign)),
+        "gated_violations": host(total_violations(
+            batch, res.gated.start, res.gated.assign)),
+        "savings": host(1.0 - gated.carbon / base.carbon[:, None]),
+        "makespan_ratio": host(gated.makespan.to(torch.float64)
+                               / base.makespan.to(torch.float64)[:, None]),
+    }
+
+
+def online_summary(r: dict) -> list[dict]:
+    """One row per policy, best mean savings first."""
+    th, wi, sx = r["policies"]
+    rows = [{"bench": "online_vs_offline", "theta": round(float(th[j]), 4),
+             "window": int(wi[j]), "stretch": float(sx[j]),
+             "online_gated_savings_pct": 100 * float(r["savings"][:, j].mean()),
+             "online_makespan_ratio": float(r["makespan_ratio"][:, j].mean()),
+             "instances": r["setup"].instances,
+             "sweep_seconds": r["seconds"]}
+            for j in range(th.shape[0])]
+    rows.sort(key=lambda row: -row["online_gated_savings_pct"])
+    return rows
+
+
+def online_vs_offline(instances, device):
+    """Online gated savings per policy beside the S=1.5 bi-level bound."""
+    setup = BenchSetup(stretch=1.5, instances=max(instances, 8))
+    r = run_online(setup, device)
+    bad = (r["unscheduled_greedy"], r["unscheduled_gated"],
+           int(r["greedy_violations"].sum()), int(r["gated_violations"].sum()))
+    if any(bad):
+        raise RuntimeError(f"online sweep: unscheduled greedy/gated tasks and "
+                           f"violation masses {bad}, expected all 0")
+    dev = resolve_device(device)
+    bound = solve_bilevel_batch(r["batch"], r["cum"],
+                                TorchDraws(setup.seed, dev),
+                                objective="carbon", stretch=setup.stretch,
+                                cfg1=SA_FAST, cfg2=SA_FAST)
+    off = float(bound.carbon_savings.mean())
+    rows = online_summary(r)
+    for row in rows:
+        row["offline_bound_savings_pct"] = 100 * off
+        row["online_fraction_of_bound"] = (
+            row["online_gated_savings_pct"] / 100 / max(off, 1e-9))
+    return rows
+
+
 CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "fig6": (fig6, "fig6_regions"),
          "fig7": (fig7, "fig7_carbon_vs_energy"),
          "table1a": (table1a, "table1a_servers"),
-         "table1b": (table1b, "table1b_tasks")}
+         "table1b": (table1b, "table1b_tasks"),
+         "online": (online_vs_offline, "online_vs_offline")}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -3,12 +3,16 @@
   schedule_eval — per-task carbon-trace deltas of candidate schedules
                   (CUDA, ``csrc/schedule_eval.cu``; feeds
                   ``ops.population_carbon``, the SA/GA fitness hot loop)
+  gate_quantile — order statistics of the online carbon gate's forecast
+                  windows (CUDA, ``csrc/gate_quantile.cu``; feeds
+                  ``ops.gate_threshold``, the dispatcher's gate)
 
 Each kernel: its CUDA source under ``csrc/``, a wrapper module that
 checks its inputs, launches it and counts launches (``build.LAUNCHES``),
 a plain version in ``ref.py``, and a public op in ``ops.py``.
 """
 from repro_torch.kernels.build import LAUNCHES, reset_launches
-from repro_torch.kernels.ops import population_carbon
+from repro_torch.kernels.ops import gate_threshold, population_carbon
 
-__all__ = ["LAUNCHES", "population_carbon", "reset_launches"]
+__all__ = ["LAUNCHES", "gate_threshold", "population_carbon",
+           "reset_launches"]

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
@@ -83,6 +84,15 @@ def build(name: str, verbose: bool = False) -> Path:
         print(proc.stderr.strip())
     os.replace(tmp, out)
     return out
+
+
+def build_all(verbose: bool = False) -> dict[str, Path]:
+    """Build every kernel under ``csrc/``, one ``nvcc`` per source, all
+    started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {n: pool.submit(build, n, verbose) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

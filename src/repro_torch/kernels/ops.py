@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.objectives import carbon_from_delta, task_durations
+from repro_torch.kernels.gate_quantile import gate_quantile_stats
 from repro_torch.kernels.schedule_eval import schedule_delta
 
 
@@ -38,3 +39,36 @@ def population_carbon(inst: PackedInstance, starts: torch.Tensor,
                                dur.reshape(B, -1, T).contiguous(),
                                cum.reshape(B, cum.shape[-1]).contiguous())
         return carbon_from_delta(inst, assigns, delta.reshape(starts.shape))
+
+
+def gate_threshold(intensity: torch.Tensor, theta, window,
+                   max_window: int) -> torch.Tensor:
+    """Per-epoch quantile gate threshold ``[*lead, E]``.
+
+    The counterpart of ``repro.kernels.ops.gate_threshold``.
+    ``intensity`` is ``[*lead, E]`` float32 (e.g. ``[E]`` for one
+    forecast, ``[B, Th, W, E]`` for a sweep's gate rows); ``theta``
+    broadcasts to it (a scalar, ``[E]`` or per row); ``window`` broadcasts
+    to ``lead`` and is capped by ``max_window``.  All rows go through one
+    ``gate_quantile`` launch, which *selects* the two order statistics and
+    the valid count; the ``np.quantile`` lerp stays out here, in
+    ``online_torch.quantile_threshold``'s expression ("select in the
+    kernel, combine in the wrapper").
+    """
+    with torch.profiler.record_function("repro_torch.gate_threshold"):
+        dev = intensity.device
+        E = intensity.shape[-1]
+        theta = torch.as_tensor(theta, dtype=torch.float32,
+                                device=dev).expand(intensity.shape)
+        window = torch.as_tensor(window, dtype=torch.int32,
+                                 device=dev).expand(intensity.shape[:-1])
+        a, b, n = (x.view(intensity.shape) for x in gate_quantile_stats(
+            intensity.reshape(-1, E).contiguous(),
+            theta.reshape(-1, E).contiguous(),
+            window.reshape(-1).contiguous(), max_window))
+        vi = theta * (n - 1).to(torch.float32)
+        gamma = vi - torch.floor(vi)
+        diff = b - a
+        # np.quantile's _lerp switches formula at gamma >= 0.5 for accuracy.
+        return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
+                           a + diff * gamma)

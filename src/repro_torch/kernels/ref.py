@@ -30,3 +30,66 @@ def schedule_carbon_ref(start: torch.Tensor, dur: torch.Tensor,
     """start/dur ``[B, Pop, T]`` int32; power ``[B, Pop, T]`` float32 (zero on
     padded tasks); cum ``[B, H+1]`` -> carbon ``[B, Pop]``."""
     return (power * schedule_delta_ref(start, dur, cum)).sum(-1)
+
+
+def _sorted_gate_windows(intensity: torch.Tensor, window: torch.Tensor,
+                         max_window: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked, sorted windows ``[R, E, max_window]`` and valid counts
+    ``[R, E]`` int32; invalid slots are ``+inf`` and sort last (a stable
+    sort, so equal values keep their window order)."""
+    R, E = intensity.shape
+    dev = intensity.device
+    off = torch.arange(max_window, device=dev)
+    idx = torch.arange(E, device=dev)[:, None] + off[None, :]      # [E, W]
+    valid = ((off[None, None, :] < window[:, None, None])
+             & (idx < E)[None])                                    # [R, E, W]
+    vals = intensity[:, idx.clamp_max(E - 1)]                      # [R, E, W]
+    vals = torch.where(valid, vals, float("inf"))
+    return (torch.sort(vals, dim=-1, stable=True).values,
+            valid.sum(-1, dtype=torch.int32))
+
+
+def gate_quantile_stats_ref(intensity: torch.Tensor, theta: torch.Tensor,
+                            window: torch.Tensor, max_window: int
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The two order statistics of each epoch's window, and its size.
+
+    intensity, theta ``[R, E]`` float32; window ``[R]`` int32; the window
+    of epoch ``t`` is ``intensity[t : t + min(window, max_window)]``,
+    truncated at E, with ``n`` valid slots.  Returns ``(a, b, n)``, each
+    ``[R, E]``: the values at sorted positions ``lo = floor(theta * (n-1))``
+    and ``min(lo + 1, n - 1)`` (``+inf`` where ``n == 0``) and ``n`` int32.
+    """
+    sv, n = _sorted_gate_windows(intensity, window, max_window)
+    vi = theta * (n - 1).to(torch.float32)
+    lo = torch.floor(vi).to(torch.int64)
+    hi = torch.minimum(lo + 1, (n - 1).to(torch.int64))
+    top = max(max_window - 1, 0)
+    a = torch.gather(sv, -1, lo.clamp(0, top).unsqueeze(-1)).squeeze(-1)
+    b = torch.gather(sv, -1, hi.clamp(0, top).unsqueeze(-1)).squeeze(-1)
+    return a, b, n
+
+
+def gate_threshold_ref(intensity: torch.Tensor, theta: torch.Tensor,
+                       window: torch.Tensor, max_window: int
+                       ) -> torch.Tensor:
+    """Per-epoch window quantile via a full sort — the naive gate.
+
+    ``np.quantile``'s linear interpolation over the masked sorted windows,
+    written out here (the counterpart of ``repro.kernels.ref``'s) so that
+    the kernel's test target shares no code with ``ops.gate_threshold``.
+    Shapes as in :func:`gate_quantile_stats_ref`; returns ``[R, E]``.
+    """
+    sv, n = _sorted_gate_windows(intensity, window, max_window)
+    vi = theta * (n - 1).to(torch.float32)
+    lo = torch.floor(vi)
+    gamma = vi - lo
+    lo_i = lo.to(torch.int64)
+    hi_i = torch.minimum(lo_i + 1, (n - 1).to(torch.int64))
+    a = torch.gather(sv, -1, lo_i.unsqueeze(-1)).squeeze(-1)
+    b = torch.gather(sv, -1, hi_i.unsqueeze(-1)).squeeze(-1)
+    diff = b - a
+    return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
+                       a + diff * gamma)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch import bench
+from repro_torch.core.solvers import online_torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -45,6 +46,7 @@ def test_no_jax_or_reference_imports(path):
 def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"decoder.py", "annealing.py", "bilevel.py", "schedule_eval.py",
+            "online.py", "online_torch.py", "gate_quantile.py",
             "bench.py", "chip_smoke.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
@@ -55,3 +57,12 @@ def test_run_batch_without_device_wants_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         bench.run_batch(bench.BenchSetup(instances=1))
+
+
+def test_sweep_policies_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    batch, _ = bench.paper_batch(bench.BenchSetup(instances=2), "cpu")
+    inten = torch.full((2, 16), 100.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        online_torch.sweep_policies(batch, inten, [0.5], [8], [1.5])
