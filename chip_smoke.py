@@ -32,7 +32,22 @@ non-zero exit code if it fails:
    and the device's busy share over one fitness evaluation from
    ``torch.profiler``;
 6. reference — the same small solve on the card and on the CPU, fed the
-   same random draws, must agree.
+   same random draws, must agree;
+7. model kernels — ``flash_attention`` and ``ssd_scan`` against their
+   plain versions on the card (allclose: both reassociate) at hymba-1.5b's
+   prefill shapes, a ragged length (S=777) and the other family's shapes
+   (qwen1.5-0.5b's full causal attention, mamba2-370m's SSD), and against
+   the naive oracles at one small shape; each timed (CUDA events, L2
+   flushed) beside its bound, its plain version and, for attention,
+   ``scaled_dot_product_attention``;
+8. serve — hymba-1.5b at its published width (1.642 B parameters, random
+   weights from seed 0) serves 8 offline-inference requests of 2-4k
+   tokens through ``repro_torch.serve.ServeEngine`` (4 lanes, greedy,
+   32 new tokens each), with the launch counts read around it: every
+   request done with 33 tokens, all logits finite, each kernel launched
+   once per layer per prefill (256);
+9. serve reference — hymba at full width cut to 2 layers, the same weights
+   on the card and on the CPU: prefill and 4 decode steps allclose.
 
 The last three lines are the ``kernels`` JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -51,9 +66,21 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 tensor-core rate
 INSTANCES = 1000                # the paper's batch size
 KERNEL_REPS = 20
 ORACLE_INSTANCES = 16           # online cells held to the numpy oracle
+FLASH_TOL = 2e-2                # bf16 attention: max |diff|, and rtol
+FLASH_ATOL = 5e-3               # ... atol, below its outputs' typical 0.03
+SSD_TOL = 3e-2                  # bf16 SSD y, atol = rtol
+BF16_ULP = 2.0 ** -7            # one bf16 ulp of |v| is at most this x |v|
+ULP_ATOL = 1e-3                 # SSD y: within one ulp of the plain's, or this
+STATE_TOL = 3e-4                # SSD h_final (float32), atol = rtol
+SERVE_REQUESTS = 8
+SERVE_SLOTS = 4
+SERVE_NEW = 32
+SERVE_REF_TOL = 3e-2            # card vs CPU logits, atol = rtol
 
 
 class SmokeFailure(Exception):
@@ -587,6 +614,352 @@ def reference_phase(dev) -> None:
           f"{float((cpu[-1] - card[-1]).abs().max()):.3g}", flush=True)
 
 
+def allclose_ratio(got, want, atol: float, rtol: float | None = None
+                   ) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (atol + rtol |want|)): the
+    second is <= 1 exactly when allclose(atol, rtol) holds; rtol defaults
+    to atol."""
+    rtol = atol if rtol is None else rtol
+    d = (got.float() - want.float()).abs()
+    return (float(d.max()),
+            float((d / (atol + rtol * want.float().abs())).max()))
+
+
+def flash_cases(dev) -> dict:
+    """flash_attention inputs ``(q, k, v, causal, window)``, bf16.
+
+    hymba: hymba-1.5b's prefill of a 4096-token prompt (25 heads on 5 kv
+    heads, dh 64, window 2048); ragged: S=777, window 100; qwen: the other
+    family, qwen1.5-0.5b's full causal attention (16 heads, dh 64,
+    S=2048)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+
+    def qkv(H, KVH, S, dh):
+        return [torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                for s in ((1, H, S, dh), (1, KVH, S, dh), (1, KVH, S, dh))]
+    return {"hymba": (*qkv(25, 5, 4096, 64), True, 2048),
+            "ragged": (*qkv(6, 2, 777, 64), True, 100),
+            "qwen": (*qkv(16, 16, 2048, 64), True, 0)}
+
+
+def flash_kernel_phase(dev) -> dict:
+    """flash_attention vs its plain version (and SDPA's time) on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref, flash_attention_plain
+
+    flush = l2_flush(dev)
+    record, max_err = None, 0.0
+    for name, (q, k, v, causal, window) in flash_cases(dev).items():
+        got = flash_attention(q, k, v, causal, window)
+        want = flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err, ratio = allclose_ratio(got, want, FLASH_ATOL, FLASH_TOL)
+        max_err = max(max_err, err)
+        check(got.shape == want.shape and err <= FLASH_TOL and ratio <= 1.0,
+              f"flash_attention != its plain version at the {name} shape "
+              f"{tuple(q.shape)} (max |diff| {err} of {FLASH_TOL}; "
+              f"{ratio:.3f} of the allclose bound at atol={FLASH_ATOL}, "
+              f"rtol={FLASH_TOL})")
+        B, H, S, dh = q.shape
+        KVH = k.shape[1]
+        i = torch.arange(S, device=dev)
+        live = torch.minimum(i + 1, torch.full_like(i, window or S)) \
+            if causal else torch.full_like(i, S)
+        ops = 4 * dh * int(live.sum()) * B * H      # QK^T and PV, 2 flops
+        moved = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in; o out
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        reps = KERNEL_REPS if name == "hymba" else 5
+        ms = time_cuda(lambda: flash_attention(q, k, v, causal, window),
+                       reps, flush)
+        plain_ms = time_cuda(
+            lambda: flash_attention_plain(q, k, v, causal, window), reps,
+            flush)
+        mask = i[None, :] <= i[:, None] if causal else None
+        if window:
+            mask = mask & (i[None, :] > i[:, None] - window)
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), reps, flush)
+        print(f"kernel flash_attention {name} (B={B}, H={H}, KVH={KVH}, "
+              f"S={S}, dh={dh}, window={window}): allclose to the plain "
+              f"version (max |diff| {err:.6g}, {ratio:.3f} of the bound at "
+              f"atol={FLASH_ATOL}, rtol={FLASH_TOL}; median |out| "
+              f"{float(want.float().abs().median()):.4g}); {ms:.4f} ms (L2 "
+              f"flushed), plain "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention (GQA, "
+              f"mask) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({ops / 1e9:.3f} GFLOP over {int(live.sum()) * B * H / 1e6:.3f}"
+              f" M live pairs at 989 TFLOP/s = {ops_ms:.6f} ms; "
+              f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms)",
+              flush=True)
+        if name == "hymba":
+            record = {"name": "flash_attention", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "replaces": "src/repro/kernels/flash_attention.py:85",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "library_ms": library_ms}
+    # The naive oracle at one small shape, float32.
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    q, k, v = (torch.randn(s, generator=g, device=dev) for s in
+               ((2, 4, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64)))
+    for causal, window in ((True, 0), (True, 48), (False, 0)):
+        err, ratio = allclose_ratio(flash_attention(q, k, v, causal, window),
+                                    attention_ref(q, k, v, causal, window),
+                                    2e-5)
+        check(ratio <= 1.0, f"flash_attention != attention_ref (causal="
+              f"{causal}, window={window}; max |diff| {err})")
+    print("kernel flash_attention: allclose to attention_ref at (2, 4, 200, "
+          "64) float32 (causal, window 48, non-causal; 2e-5)", flush=True)
+    record["max_abs_err"] = max_err
+    return record
+
+
+def ssd_cases(dev) -> dict:
+    """ssd_scan inputs ``(x, dt, A, B, C, chunk)``: x, B, C bf16.
+
+    hymba: hymba-1.5b's prefill of 4096 tokens (32 heads of P=100, G=1,
+    N=16, chunk 256); ragged: S=777; mamba: the other family,
+    mamba2-370m's SSD (32 heads of P=64, N=128, S=2048)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+
+    def case(S, H, P, G, N, chunk):
+        x = (0.5 * torch.randn((1, S, H, P), generator=g, device=dev)
+             ).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(
+            torch.randn((1, S, H), generator=g, device=dev))
+        A = -torch.exp(0.3 * torch.randn((H,), generator=g, device=dev))
+        Bm, Cm = ((0.5 * torch.randn((1, S, G, N), generator=g, device=dev)
+                   ).to(torch.bfloat16) for _ in range(2))
+        return x, dt, A, Bm, Cm, chunk
+    return {"hymba": case(4096, 32, 100, 1, 16, 256),
+            "ragged": case(777, 8, 100, 1, 16, 256),
+            "mamba": case(2048, 32, 64, 1, 128, 256)}
+
+
+def ssd_kernel_phase(dev) -> dict:
+    """ssd_scan vs its plain version on the card; no one PyTorch call
+    computes the scan, so there is no library time."""
+    import torch
+    from repro_torch.models.ssm import ssd_chunked, ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    flush = l2_flush(dev)
+    record, max_err = None, 0.0
+    for name, (x, dt, A, Bm, Cm, chunk) in ssd_cases(dev).items():
+        y, h = ssd_scan(x, dt, A, Bm, Cm, chunk)
+        yr, hr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        torch.cuda.synchronize()
+        err, ratio = allclose_ratio(y, yr, SSD_TOL)
+        _, uratio = allclose_ratio(y, yr, ULP_ATOL, BF16_ULP)
+        herr, hratio = allclose_ratio(h, hr, STATE_TOL)
+        max_err = max(max_err, err)
+        check(ratio <= 1.0 and uratio <= 1.0 and hratio <= 1.0,
+              f"ssd_scan != its plain version at the {name} shape "
+              f"{tuple(x.shape)}: y max |diff| {err} ({ratio:.3f} of the "
+              f"{SSD_TOL} bound, {uratio:.3f} of one bf16 ulp + "
+              f"{ULP_ATOL}), h_final {herr} ({hratio:.3f} of {STATE_TOL})")
+        B, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        Q = min(chunk, S)
+        full, rest = divmod(S, Q)
+        pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+        # C.B over the causal pairs once per group (it does not depend on
+        # the head); per head M.x over the pairs, the state update and the
+        # inflow.
+        ops = B * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * S * P * N))
+        moved = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * Bm.numel() * 2
+                 + A.numel() * 4 + h.numel() * 4)
+        ops_ms = ops / TF32_OPS_PER_S * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        reps = KERNEL_REPS if name == "hymba" else 5
+        ms = time_cuda(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), reps,
+                       flush)
+        plain_ms = time_cuda(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk),
+                             reps, flush)
+        print(f"kernel ssd_scan {name} (B={B}, S={S}, H={H}, P={P}, G={G}, "
+              f"N={N}, chunk={Q}): allclose to the plain version (y max "
+              f"|diff| {err:.6g}, {ratio:.3f} of the bound at atol=rtol="
+              f"{SSD_TOL}, {uratio:.3f} of one bf16 ulp + {ULP_ATOL}, max "
+              f"|y| {float(yr.float().abs().max()):.4g}; h_final "
+              f"{herr:.6g}, {hratio:.3f} of {STATE_TOL});"
+              f" {ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, no "
+              f"library call; bound {bound_ms:.6f} ms ({ops / 1e9:.3f} GFLOP"
+              f" at 495 TFLOP/s TF32 = {ops_ms:.6f} ms; {moved / 1e6:.3f} MB"
+              f" at 3.35 TB/s = {bytes_ms:.6f} ms); {B * H} (b, h) pairs",
+              flush=True)
+        if name == "hymba":
+            record = {"name": "ssd_scan", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      "replaces": "src/repro/kernels/ssd_scan.py:73",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "library_ms": None}
+    x, dt, A, Bm, Cm, _ = ssd_cases(dev)["ragged"]
+    small = (x[:, :96, :2].float().contiguous(), dt[:, :96, :2].contiguous(),
+             A[:2].contiguous(), Bm[:, :96].float().contiguous(),
+             Cm[:, :96].float().contiguous())
+    y, h = ssd_scan(*small, 32)
+    ys, hs = ssd_ref(*small)
+    err, ratio = allclose_ratio(y, ys, 3e-4)
+    herr, hratio = allclose_ratio(h, hs, 3e-4)
+    check(ratio <= 1.0 and hratio <= 1.0,
+          f"ssd_scan != ssd_ref at (1, 96, 2, 100) float32 (y {err}, "
+          f"h {herr})")
+    print("kernel ssd_scan: allclose to ssd_ref (sequential) at (1, 96, 2, "
+          "100) float32, chunk 32 (3e-4)", flush=True)
+    record["max_abs_err"] = max_err
+    return record
+
+
+def serve_phase(dev) -> dict:
+    """hymba-1.5b at full width through ServeEngine; launch counts read
+    around the run."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = configs.get("hymba-1.5b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(2048, 4097, SERVE_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(L))
+                    .astype(np.int32), max_new=SERVE_NEW)
+            for i, L in enumerate(lens)]
+    eng = ServeEngine(model, ServeConfig(batch_slots=SERVE_SLOTS,
+                                         max_len=int(lens.max()) + 40),
+                      device=dev)
+    # Every logit the engine samples from, checked on the device.
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    plain_prefill, plain_decode = model.prefill, model.decode
+
+    def checked(fn):
+        def call(batch):
+            logits, caches = fn(batch)
+            bad.add_((~torch.isfinite(logits)).sum())
+            return logits, caches
+        return call
+    model.prefill, model.decode = checked(plain_prefill), \
+        checked(plain_decode)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    model.prefill, model.decode = plain_prefill, plain_decode
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_tok = sum(len(r.out_tokens) for r in done)
+    want = cfg.n_layers * SERVE_REQUESTS
+    check(len(done) == SERVE_REQUESTS and all(
+        r.done and not r.truncated and len(r.out_tokens) == 1 + SERVE_NEW
+        for r in done),
+        "serve: not every request came back done with "
+        f"{1 + SERVE_NEW} tokens: "
+        f"{[(r.rid, r.done, r.truncated, len(r.out_tokens)) for r in done]}")
+    check(int(bad) == 0, f"serve: {int(bad)} non-finite logits")
+    for k in ("flash_attention", "ssd_scan"):
+        check(launches.get(k, 0) == want,
+              f"{k} launched {launches.get(k, 0)} times in the serve run, "
+              f"expected {want} ({cfg.n_layers} layers x {SERVE_REQUESTS} "
+              "prefills)")
+    s = eng.summary()
+    pw = {k: v for k, v in s["wall"].items() if k.startswith("prefill")}
+    dw = {k: v for k, v in s["wall"].items() if k.startswith("decode")}
+    prefill_s = sum(v["mean"] * v["count"] for v in pw.values())
+    decode_s = sum(v["mean"] * v["count"] for v in dw.values())
+    print(f"serve: {cfg.name} at full width ({n_params / 1e9:.3f} B "
+          f"parameters as stored; ArchConfig.param_count "
+          f"{cfg.param_count() / 1e9:.3f} B; init {init_s:.1f} s), "
+          f"{SERVE_REQUESTS} requests of {sorted(int(L) for L in lens)} "
+          f"tokens, {SERVE_SLOTS} lanes, greedy, max_new {SERVE_NEW}: "
+          f"{wall:.3f} s wall, {n_tok} tokens out ({n_tok / wall:.2f} "
+          f"tokens/s; {int(lens.sum()) / prefill_s:.1f} prompt tokens/s in "
+          f"prefill); prefill {prefill_s:.3f} s over {SERVE_REQUESTS} "
+          f"(first {pw.get('prefill_wall_s_first', {}).get('mean', 0):.3f} s,"
+          f" warm mean {pw.get('prefill_wall_s_warm', {}).get('mean', 0):.3f}"
+          f" s), decode {decode_s:.3f} s over {s['ticks']} ticks (warm "
+          f"mean {dw.get('decode_wall_s_warm', {}).get('mean', 0) * 1e3:.2f}"
+          f" ms, p90 {dw.get('decode_wall_s_warm', {}).get('p90', 0) * 1e3:.2f}"
+          f" ms; {s['decode_tokens']} decode tokens); flash_attention "
+          f"launches {launches.get('flash_attention', 0)}, ssd_scan "
+          f"launches {launches.get('ssd_scan', 0)}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    tokens = torch.as_tensor(reqs[int(np.argmax(lens))].prompt[None],
+                             dtype=torch.int64, device=dev)
+    profile_busy(f"one hymba-1.5b prefill of {int(lens.max())} tokens",
+                 lambda: model.prefill({"tokens": tokens}))
+    profile_busy(f"one decode tick of {SERVE_SLOTS} lanes",
+                 lambda: model.decode({"token": tokens[:, :1].expand(
+                     SERVE_SLOTS, 1), "pos": torch.tensor(
+                         [int(lens.max())] * SERVE_SLOTS, device=dev),
+                     **eng.caches}))
+    del model, eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": wall}
+
+
+def serve_reference_phase(dev) -> None:
+    """hymba at full width, 2 layers: the same weights on the card (the
+    kernels) and on the CPU (their plain versions)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.api import Model, build_model
+
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"), n_layers=2)
+    card = build_model(cfg, dev, seed=0)
+
+    def to_cpu(t):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in t.items()}
+    cpu = Model(cfg, to_cpu(card.tree()))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 300)))
+    errs = []
+    t0 = time.perf_counter()
+    lg, cg = card.prefill({"tokens": prompt.to(dev)})
+    lc, cc = cpu.prefill({"tokens": prompt})
+    for step in range(5):
+        err, ratio = allclose_ratio(lg.cpu(), lc, SERVE_REF_TOL)
+        check(bool(torch.isfinite(lg).all()) and ratio <= 1.0,
+              f"serve reference: card != CPU logits at step {step} (max "
+              f"|diff| {err}, {ratio:.3f} of the {SERVE_REF_TOL} bound)")
+        errs.append((err, ratio))
+        if step == 4:
+            break
+        tok = torch.argmax(lc[:, :cfg.vocab_size], -1)[:, None]
+        pos = 300 + step
+        lg, cg = card.decode({"token": tok.to(dev),
+                              "pos": torch.tensor(pos, device=dev), **cg})
+        lc, cc = cpu.decode({"token": tok, "pos": torch.tensor(pos), **cc})
+    print(f"serve reference: hymba-1.5b at full width, 2 layers, a 300-token"
+          f" prompt and 4 decode steps: card logits allclose to the CPU's at "
+          f"atol=rtol={SERVE_REF_TOL} (max |diff| per step "
+          f"{[round(e, 6) for e, _ in errs]}, largest share of the bound "
+          f"{max(r for _, r in errs):.3f}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -615,6 +988,11 @@ def main() -> int:
     kernels[1]["launches"] = online["launches"].get("gate_quantile", 0)
     layer_phase(dev, main["seconds"])
     reference_phase(dev)
+    kernels += [flash_kernel_phase(dev), ssd_kernel_phase(dev)]
+    serve = serve_phase(dev)
+    kernels[2]["launches"] = serve["launches"].get("flash_attention", 0)
+    kernels[3]["launches"] = serve["launches"].get("ssd_scan", 0)
+    serve_reference_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

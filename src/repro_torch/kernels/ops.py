@@ -3,7 +3,9 @@
 The counterpart of ``repro.kernels.ops``.  There is no kernel switch: the
 tensor's device decides.  A CUDA tensor goes through the hand-written
 kernel, a CPU tensor through its plain version, with no fallback from one
-to the other.
+to the other.  ``flash_attention`` and ``ssd_scan`` are the kernels' own
+entries (counterparts of the reference's ops of those names); the
+scheduling ops combine their kernel's selection out here.
 """
 from __future__ import annotations
 
@@ -13,8 +15,13 @@ import torch
 
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.objectives import carbon_from_delta, task_durations
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gate_quantile import gate_quantile_stats
 from repro_torch.kernels.schedule_eval import schedule_delta
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+__all__ = ["population_carbon", "gate_threshold", "flash_attention",
+           "ssd_scan"]
 
 
 def population_carbon(inst: PackedInstance, starts: torch.Tensor,
@@ -72,3 +79,4 @@ def gate_threshold(intensity: torch.Tensor, theta, window,
         # np.quantile's _lerp switches formula at gamma >= 0.5 for accuracy.
         return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
                            a + diff * gamma)
+

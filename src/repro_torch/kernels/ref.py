@@ -1,8 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
-The counterpart of ``repro.kernels.ref``.  Deliberately naive: each is
-the straightforward formulation of what its kernel computes, run on the
-CPU by the tests and held bitwise against the kernel on the card.
+The counterpart of ``repro.kernels.ref``.  The scheduling kernels' plain
+versions are deliberately naive: each is the straightforward formulation
+of what its kernel computes, run on the CPU by the tests and held bitwise
+against the kernel on the card.  The model kernels' plain versions are
+the model's own blockwise paths, held to the kernel by a tolerance: the
+attention's here, in the kernel's layout (``flash_unrolled``, imported
+when called: the models import the kernels), beside the naive oracle
+``attention_ref``; the SSD's are ``repro_torch.models.ssm.ssd_chunked``
+and its sequential oracle ``ssd_ref``, whose layout is the kernel's.
 """
 from __future__ import annotations
 
@@ -93,3 +99,44 @@ def gate_threshold_ref(intensity: torch.Tensor, theta: torch.Tensor,
     diff = b - a
     return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
                        a + diff * gamma)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int = 0,
+                          block: int = 2048) -> torch.Tensor:
+    """The ``flash_attention`` kernel's plain version, in its layout.
+
+    q ``[B, H, Sq, dh]``; k, v ``[B, KVH, Skv, dh]`` -> ``[B, H, Sq, dh]``:
+    the model's blockwise online softmax
+    (:func:`repro_torch.models.attention.flash_unrolled`, blocks of
+    ``block``), so that the CPU model computes what the JAX model does.
+    """
+    from repro_torch.models.attention import flash_unrolled
+    B, H, Sq, dh = q.shape
+    KVH = k.shape[1]
+    qg = q.transpose(1, 2).reshape(B, Sq, KVH, H // KVH, dh)
+    out = flash_unrolled(qg, k.transpose(1, 2), v.transpose(1, 2),
+                         block=block, window=window, causal=causal)
+    return out.reshape(B, Sq, H, dh).transpose(1, 2)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [B,H,S,dh]; k,v [B,KVH,Skv,dh]. Full-matrix softmax attention —
+    the naive oracle, sharing no code with the blockwise path."""
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    rep = H // KVH
+    kk = torch.repeat_interleave(k, rep, dim=1).float()
+    vv = torch.repeat_interleave(v, rep, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / (dh ** 0.5)
+    if causal or window:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = kpos <= qpos if causal else torch.ones(
+            (Sq, Skv), dtype=torch.bool, device=q.device)
+        if window:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

@@ -1,0 +1,115 @@
+"""``ssd_scan``: the Mamba2 SSD chunk scan (forward).
+
+Replaces the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_pallas`` with the
+hand-written CUDA kernel ``csrc/ssd_scan.cu`` (its header gives the design
+and the bound).  The wrapper takes the reference's layout — x ``[B, S, H,
+P]`` (bfloat16 or float32), dt ``[B, S, H]`` float32 (after softplus), A
+``[H]`` float32 (< 0), B and C ``[B, S, G, N]`` (bfloat16 or float32) —
+and returns ``(y [B, S, H, P]`` in x's dtype, ``h_final [B, H, P, N]``
+float32), in one launch.  A ragged last chunk needs no padding.
+
+On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
+runs the plain version, the model's own
+:func:`repro_torch.models.ssm.ssd_chunked`.  The two agree to a tolerance: the chunked
+recurrence reassociates.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "ssd_scan"
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_SHARED_BYTES = 232448     # dynamic shared memory a Hopper block may use
+MAX_SLICE = 128               # columns of P a block takes (64 x that outputs
+                              # in registers)
+MAX_STATE = 8192              # slice x N: the state entries a block holds
+
+
+def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
+    if x.dtype not in DTYPES or Bm.dtype not in DTYPES \
+            or Cm.dtype != Bm.dtype \
+            or (Bm.dtype == torch.bfloat16 and x.dtype != torch.bfloat16):
+        raise TypeError(f"x and B/C must be float32 or bfloat16 (B and C "
+                        f"alike, bfloat16 only with a bfloat16 x), got "
+                        f"{x.dtype}/{Bm.dtype}/{Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32, got {dt.dtype}/{A.dtype}")
+    if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"x must be [B, S, H, P] and B, C one [B, S, G, N] "
+                         f"shape, got {tuple(x.shape)}/{tuple(Bm.shape)}/"
+                         f"{tuple(Cm.shape)}")
+    Bsz, S, H, P = x.shape
+    G = Bm.shape[2]
+    if dt.shape != (Bsz, S, H) or A.shape != (H,) \
+            or Bm.shape[:2] != (Bsz, S) or G < 1 or H % G:
+        raise ValueError(f"shapes do not fit x {tuple(x.shape)}: dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B/C "
+                         f"{tuple(Bm.shape)} (H % G == 0)")
+    if S < 1:
+        raise ValueError("ssd_scan needs S >= 1")
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"chunk must be an int >= 1, got {chunk!r}")
+    if not (x.device == dt.device == A.device == Bm.device == Cm.device):
+        raise ValueError("x, dt, A, B and C must lie on one device")
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int):
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    lib = build.load(NAME)
+    lib.ssd_scan_slice_width.argtypes = [ctypes.c_int]
+    lib.ssd_scan_slice_width.restype = ctypes.c_int
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    Pt = lib.ssd_scan_slice_width(P)
+    smem = lib.ssd_scan_smem_bytes(P, N, Q)
+    if Pt > MAX_SLICE or Pt * N > MAX_STATE or smem > MAX_SHARED_BYTES:
+        raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={Q} exceed the "
+                         f"kernel (slices of {Pt} <= {MAX_SLICE} columns, "
+                         f"{Pt} * N <= {MAX_STATE}, {smem} B of shared "
+                         f"memory <= {MAX_SHARED_BYTES})")
+    if x.numel() >= 2**31 or Bm.numel() >= 2**31:
+        raise ValueError("ssd_scan: sizes exceed the kernel's indexing")
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty_like(x)
+    h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+             Cm.data_ptr(), y.data_ptr(), h.data_ptr(), Bsz, S, H, G, P, N, Q,
+             int(x.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    build.count_launch(NAME)
+    return y, h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y, h_final)`` of the SSD recurrence over chunks of ``chunk`` steps.
+
+    x ``[B, S, H, P]``, dt ``[B, S, H]``, A ``[H]``, B/C ``[B, S, G, N]``
+    -> y ``[B, S, H, P]`` (x's dtype), h_final ``[B, H, P, N]`` float32.
+    The kernel on CUDA tensors, the plain version on CPU tensors.
+    """
+    _check(x, dt, A, Bm, Cm, chunk)
+    with torch.profiler.record_function("repro_torch.ssd_scan"):
+        if x.device.type == "cuda":
+            return _launch(x, dt, A, Bm, Cm, chunk)
+        if x.device.type == "cpu":
+            # imported here: the model imports the kernels
+            from repro_torch.models.ssm import ssd_chunked
+            return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")

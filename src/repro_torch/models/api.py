@@ -1,0 +1,147 @@
+"""Public model API: ``build_model(cfg)`` -> a :class:`Model` whose
+``prefill`` and ``decode`` run the serve path.
+
+The counterpart of ``repro.models.api`` for the dense, ssm and hybrid
+families.  The forwards are plain functions of (params, batch), as in the
+reference; :class:`Model` is the ``nn.Module`` that holds the stacked
+parameter tree under the reference's paths (``blocks.attn.wq``, with its
+leading layer axis), so that ``.to()`` and ``state_dict()`` work, and
+calls them.  Batch keys follow the reference: ``tokens`` [B, S] for
+prefill; ``token`` [B, 1], ``pos`` (scalar or per-lane [B]) and the
+stacked caches for decode.  ``loss_fn`` and the vision/audio frontends
+come with later slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import families
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.layers import (cast, embed_apply, embed_defs,
+                                       logits_apply, matmul_f32, norm_apply, norm_defs,
+                                       sinusoidal_pos, unembed_defs)
+from repro_torch.models.params import init_params
+from repro_torch.models.parallel import ParallelCfg
+
+
+def model_defs(cfg: ArchConfig) -> dict:
+    defs: dict = {"embed": embed_defs(cfg.padded_vocab, cfg.d_model)}
+    defs["blocks"] = families.stack_defs(families.block_defs(cfg),
+                                         cfg.n_layers)
+    defs["final_norm"] = norm_defs(cfg.d_model, cfg.norm)
+    if not cfg.tie_embeddings:
+        defs["unembed"] = unembed_defs(cfg.d_model, cfg.padded_vocab)
+    return defs
+
+
+def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return matmul_f32(h, cast(params["embed"]["table"]).T)
+    return logits_apply(params["unembed"], h)
+
+
+def _embed_in(params, cfg: ArchConfig, batch: dict, decode: bool = False):
+    """Token embedding. Returns x [B,S,D]."""
+    if decode:
+        return embed_apply(params["embed"], batch["token"])
+    x = embed_apply(params["embed"], batch["tokens"])
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(x.shape[1], cfg.d_model, device=x.device)
+    return x
+
+
+def _caches_out(new_caches: dict) -> dict:
+    out = {}
+    if "k" in new_caches:
+        out["k_cache"], out["v_cache"] = new_caches["k"], new_caches["v"]
+    if "h" in new_caches:
+        out["ssm_state"], out["conv_state"] = (new_caches["h"],
+                                               new_caches["conv"])
+    return out
+
+
+def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
+    """Full-sequence forward -> (last-position logits [B, V], caches).
+
+    The caches (stacked [L, ...]) feed ``decode_fn`` directly.
+    """
+    x = _embed_in(params, cfg, batch)
+    x, new_caches = families.stack_apply(
+        params["blocks"], x, cfg, par, mode="prefill", n_layers=cfg.n_layers)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return _logits(params, cfg, x[:, -1]), _caches_out(new_caches)
+
+
+def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
+    """One decode step. batch: token [B,1], pos (scalar or [B]), + caches
+    [L, ...].  Returns (logits [B, V], new_caches dict); the input caches
+    are left as they were."""
+    x = _embed_in(params, cfg, batch, decode=True)
+    if cfg.pos == "sinusoidal":
+        raise NotImplementedError("sinusoidal decode comes with the encdec "
+                                  "family (ROADMAP Queue 1 item 14b)")
+    caches: dict = {}
+    if "k_cache" in batch:
+        caches["k"], caches["v"] = batch["k_cache"], batch["v_cache"]
+    if "ssm_state" in batch:
+        caches["h"], caches["conv"] = batch["ssm_state"], batch["conv_state"]
+    x, new_caches = families.stack_apply(
+        params["blocks"], x, cfg, par, mode="decode", n_layers=cfg.n_layers,
+        pos=batch["pos"], caches=caches)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return _logits(params, cfg, x[:, 0]), _caches_out(new_caches)
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors as modules and (frozen) parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def tree(self) -> dict:
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class Model(_Tree):
+    """The parameter tree of ``cfg`` and its serve forwards.
+
+    ``state_dict()`` keys are the reference's tree paths
+    (``blocks.attn.wq``, ``embed.table``, ...).
+    """
+
+    def __init__(self, cfg: ArchConfig, params: dict,
+                 par: ParallelCfg = ParallelCfg()):
+        super().__init__(params)
+        self.cfg, self.par = cfg, par
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    @torch.no_grad()
+    def prefill(self, batch: dict):
+        return prefill_fn(self.tree(), batch, self.cfg, self.par)
+
+    @torch.no_grad()
+    def decode(self, batch: dict):
+        return decode_fn(self.tree(), batch, self.cfg, self.par)
+
+
+def build_model(cfg: ArchConfig, device: str | torch.device = DEFAULT_DEVICE,
+                seed: int = 0, par: ParallelCfg = ParallelCfg()) -> Model:
+    """A :class:`Model` of ``cfg`` with random weights drawn on ``device``
+    from a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return Model(cfg, init_params(gen, model_defs(cfg)), par)

@@ -1,0 +1,115 @@
+"""Per-family block assembly and the layer stack.
+
+The counterpart of ``repro.models.families`` for the serve path:
+  dense   : attn -> mlp                      (pre-norm residual)
+  ssm     : mamba2 mixer only (mamba has no separate FFN)
+  hybrid  : parallel attn + mamba heads on the same normed input
+            (outputs mean-combined, Hymba-style) -> mlp
+Parameters are stacked with a leading layer axis, as in the reference;
+:func:`stack_apply` is a Python loop over it (no scan, and no remat, which
+is training).  ``moe`` and ``encdec`` come with their families.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention, ssm as ssm_mod
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.layers import mlp_apply, mlp_defs, norm_apply, \
+    norm_defs
+from repro_torch.models.params import ParamDef, tree_map_defs
+from repro_torch.models.parallel import ParallelCfg
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: moe, "
+            "encdec and vlm wait for ROADMAP Queue 1 item 14b")
+
+
+def stack_defs(defs, n_layers: int):
+    """Prepend a ``layer`` axis of size L to every ParamDef in the tree."""
+    return tree_map_defs(
+        lambda d: ParamDef((n_layers,) + d.shape, ("layer",) + d.logical,
+                           init=d.init, dtype=d.dtype, scale=d.scale), defs)
+
+
+def block_defs(cfg: ArchConfig) -> dict:
+    _check_family(cfg)
+    d = {}
+    D, kind = cfg.d_model, cfg.norm
+    d["norm1"] = norm_defs(D, kind)
+    if cfg.family == "ssm":
+        d["ssm"] = ssm_mod.ssm_defs(cfg)
+        return d
+    d["attn"] = attention.attn_defs(cfg)
+    if cfg.family == "hybrid":
+        d["ssm"] = ssm_mod.ssm_defs(cfg)
+    d["norm2"] = norm_defs(D, kind)
+    if cfg.d_ff:
+        d["mlp"] = mlp_defs(D, cfg.d_ff, cfg.act)
+    return d
+
+
+def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
+                *, mode: str, pos=None, cache: dict | None = None):
+    """One decoder block. Returns (x, new_cache)."""
+    _check_family(cfg)
+    new_cache: dict = {}
+    kind, eps = cfg.norm, cfg.norm_eps
+    h = norm_apply(p["norm1"], x, kind, eps)
+
+    if cfg.family == "ssm":
+        y, st = ssm_mod.ssm_apply(p["ssm"], h, cfg, par, mode=mode,
+                                  state=cache)
+        new_cache.update(st)
+        return x + y, new_cache
+
+    attn_cache = {k: cache[k] for k in ("k", "v")} if cache and "k" in cache \
+        else None
+    y, ac = attention.attn_apply(p["attn"], h, cfg, par, mode=mode, pos=pos,
+                                 cache=attn_cache)
+    new_cache.update(ac)
+
+    if cfg.family == "hybrid":
+        # Hymba: attention and mamba heads read the SAME normed input in
+        # parallel; their (pre-norm) outputs are mean-combined.
+        sst = {"h": cache["h"], "conv": cache["conv"]} \
+            if cache and "h" in cache else None
+        ys, st = ssm_mod.ssm_apply(p["ssm"], h, cfg, par, mode=mode,
+                                   state=sst)
+        y = 0.5 * (y + ys)
+        new_cache.update(st)
+    x = x + y
+
+    h = norm_apply(p["norm2"], x, kind, eps)
+    y = mlp_apply(p["mlp"], h, cfg.act) if cfg.d_ff else torch.zeros_like(x)
+    return x + y, new_cache
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def stack_apply(stacked: dict, x: torch.Tensor, cfg: ArchConfig,
+                par: ParallelCfg, *, mode: str, n_layers: int, pos=None,
+                caches: dict | None = None):
+    """Run ``n_layers`` blocks over the stacked param tree, in order.
+
+    ``caches``: dict of [L, ...] tensors for decode.  Returns
+    (x, new_caches), the caches stacked [L, ...] again.
+    """
+    caches = caches if caches is not None else {}
+    outs = []
+    for i in range(n_layers):
+        x, nc = block_apply(_layer(stacked, i), x, cfg, par, mode=mode,
+                            pos=pos, cache=_layer(caches, i) or None)
+        outs.append(nc)
+    new_caches = ({k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                  if outs and outs[0] else {})
+    return x, new_caches

@@ -1,0 +1,150 @@
+"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+
+The counterpart of ``repro.models.layers``: ``*_defs(cfg)`` returns a
+:class:`~repro_torch.models.params.ParamDef` tree, ``*_apply(params, x,
+...)`` consumes the materialized tree.  Activations run in bf16 with f32
+norms and softmax; parameters are stored f32 and cast at use, where the
+reference casts.  A product of bf16 operands rounds its f32 sum to bf16,
+as XLA's does.  ``chunked_ce_loss`` comes with the train slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import ParamDef
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def cast(x: torch.Tensor) -> torch.Tensor:
+    return x.to(COMPUTE_DTYPE)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The product of bf16 operands, its f32 sum kept unrounded.
+
+    Where the reference converts a bf16 product straight to f32, XLA's
+    compiled graph never rounds it to bf16 (the dot takes an f32 result),
+    so the port takes it in f32 there: the products of bf16 values are
+    exact in f32, and so is what is summed.
+    """
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+def norm_defs(d: int, kind: str = "rmsnorm") -> dict:
+    out = {"scale": ParamDef((d,), ("embed",), init="ones")}
+    if kind == "layernorm":
+        out["bias"] = ParamDef((d,), ("embed",), init="zeros")
+    return out
+
+
+def norm_apply(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    else:
+        mu = torch.mean(xf, -1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+        xf = xf + p["bias"].float()
+    return (xf * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings.
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x [..., S, H, dh]; pos [..., S] integer absolute positions."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # [dh/2]
+    ang = pos[..., None].float() * freqs                    # [..., S, dh/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int = 0, device=None
+                   ) -> torch.Tensor:
+    """Classic transformer sinusoids (whisper-style), bf16 [S, d]."""
+    pos = (torch.arange(seq, device=device) + offset)[:, None].float()
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN): silu-GLU (llama/qwen), gelu (whisper), relu^2 (nemotron).
+# ---------------------------------------------------------------------------
+
+def mlp_defs(d: int, f: int, act: str) -> dict:
+    glu = act.endswith("_glu")
+    out = {"w_in": ParamDef((d, (2 if glu else 1), f),
+                            ("embed", None, "mlp"), init="scaled")}
+    out["w_out"] = ParamDef((f, d), ("mlp", "embed"), init="scaled")
+    return out
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` written as ``jax.nn.silu`` is: ``1 / (1 + exp(-x))``
+    rounded op by op in x's dtype.  ``F.silu`` rounds once, which puts a
+    bf16 activation an ulp away from the reference's in about a third of
+    the values."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu_glu":
+        return silu(h[..., 0, :]) * h[..., 1, :]
+    if act == "gelu":
+        return F.gelu(h[..., 0, :], approximate="tanh")
+    if act == "relu2":
+        r = F.relu(h[..., 0, :])
+        return r * r
+    raise ValueError(f"unknown act {act!r}")
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    w_in = cast(p["w_in"])
+    h = (x @ w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
+    h = activation(h, act)
+    return h @ cast(p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# Embeddings and logits.
+# ---------------------------------------------------------------------------
+
+def embed_defs(vocab: int, d: int) -> dict:
+    return {"table": ParamDef((vocab, d), ("vocab", "embed"), init="normal")}
+
+
+def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return cast(p["table"][tokens.long()])
+
+
+def unembed_defs(d: int, vocab: int) -> dict:
+    return {"w": ParamDef((d, vocab), ("embed", "vocab"), init="scaled")}
+
+
+def logits_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return matmul_f32(x, cast(p["w"]))

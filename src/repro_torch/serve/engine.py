@@ -1,0 +1,224 @@
+"""Batched serving engine: prefill + decode with continuous batching.
+
+The counterpart of ``repro.serve.engine``.  A fixed pool of
+``batch_slots`` decode lanes runs one decode step per tick over the whole
+pool (caches are dicts of ``[L, B, ...]`` tensors on the model's device).
+New requests are prefilled one at a time and their caches inserted into a
+free lane; finished lanes (EOS or ``max_new``) are evicted and refilled.
+Lane occupancy lives in :class:`repro_torch.serve.lanes.LanePool`.  This
+serve path is what the cluster's ``offline_inference`` job template
+stands for.
+
+Semantics contracts (the reference's, held in ``tests/test_torch_serve.py``):
+
+* ``max_new`` counts **decode** tokens; the prefill-sampled continuation
+  token is emitted in addition (``out_tokens`` holds ``1 + max_new`` ids
+  for an un-truncated, non-EOS request);
+* a request evicted at the ``max_len`` KV horizon before reaching
+  ``max_new``/EOS is surfaced with ``truncated=True``, never silently;
+* ``run`` drains the lane pool before returning — unfinished requests come
+  back ``done=False`` *and* their lanes are freed, so back-to-back ``run``
+  calls on one engine never re-serve stale lanes.
+
+A windowed model's KV ring has ``min(attn_window, max_len)`` slots, the
+size the reference's decode spec gives it.  (The reference engine sizes it
+from the first admitted prompt, so a short first prompt shrinks every
+later request's window: ROADMAP Queue 3.)
+
+Greedy sampling is ``argmax`` over the real vocabulary; temperature
+sampling draws from a ``torch.Generator`` seeded with ``ServeConfig.seed``
+(its stream differs from ``jax.random``'s).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.api import Model
+from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
+from repro_torch.serve.lanes import LanePool
+
+KV_KEYS = ("k_cache", "v_cache")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # [S] int32
+    max_new: int = 16
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    truncated: bool = False            # evicted at the max_len KV horizon
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    batch_slots: int = 4
+    max_len: int = 256                 # KV-cache horizon per lane
+    temperature: float = 0.0           # 0 = greedy
+    eos_id: int = -1                   # -1: never EOS (synthetic vocab)
+    seed: int = 0
+
+
+class ServeEngine:
+    def __init__(self, model: Model, sc: ServeConfig = ServeConfig(),
+                 tracer: Tracer | None = None,
+                 metrics: MetricsRegistry | None = None,
+                 device: str | torch.device = DEFAULT_DEVICE):
+        if model.device.type != resolve_device(device).type:
+            raise ValueError(f"the model lies on {model.device}, the engine "
+                             f"was asked for {device}")
+        self.device = model.device
+        self.model, self.cfg, self.sc = model, model.cfg, sc
+        # Host-side telemetry: read around the steps, never inside them,
+        # so sampled tokens are the same with tracing on or off.  The tick
+        # index is the simulation clock for trace timestamps.
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._wall_seen: set[str] = set()
+        self._tick = 0
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(sc.seed)
+        self.caches: dict[str, torch.Tensor] | None = None
+        self.lanes = LanePool(sc.batch_slots)
+        self.lane_pos = np.zeros(sc.batch_slots, np.int64)
+
+    # -- cache pool -----------------------------------------------------------
+    def _ring(self) -> int:
+        """KV slots per lane: the window (capped by max_len) or max_len."""
+        W, M = self.cfg.attn_window, self.sc.max_len
+        return min(W, M) if W else M
+
+    def _init_caches(self, template: dict) -> None:
+        """Allocate the lane pool from a single-request prefill's caches:
+        KV time dims take ``_ring()`` slots, SSM/conv caches keep their
+        shapes."""
+        B = self.sc.batch_slots
+        pool = {}
+        for k, v in template.items():
+            shape = (v.shape[0], B) + tuple(v.shape[2:])
+            if k in KV_KEYS:
+                shape = (v.shape[0], B, self._ring()) + tuple(v.shape[3:])
+            pool[k] = torch.zeros(shape, dtype=v.dtype, device=v.device)
+        self.caches = pool
+
+    def _insert(self, lane: int, caches_1: dict) -> None:
+        for k, v in caches_1.items():
+            pool = self.caches[k]
+            if k in KV_KEYS:
+                W = pool.shape[2]
+                pool[:, lane].zero_()
+                n = min(v.shape[2], W)
+                pool[:, lane, :n] = v[:, 0, :n]
+            else:
+                pool[:, lane] = v[:, 0]
+
+    # -- telemetry ------------------------------------------------------------
+    def _observe_wall(self, name: str, seconds: float) -> None:
+        """first = the first call (kernel builds included); the rest are
+        warm steps — the split summary() reports."""
+        suffix = "_first" if name not in self._wall_seen else "_warm"
+        self._wall_seen.add(name)
+        self.metrics.histogram(name + suffix).observe(seconds)
+
+    def summary(self) -> dict:
+        """Aggregate view of the last ``run`` from the metrics registry."""
+        snap = self.metrics.snapshot()
+        return {
+            "requests_admitted": snap.get("requests_admitted", 0),
+            "requests_completed": snap.get("requests_completed", 0),
+            "requests_truncated": snap.get("requests_truncated", 0),
+            "decode_tokens": snap.get("decode_tokens", 0),
+            "ticks": snap.get("ticks", 0),
+            "wall": {k: v for k, v in snap.items()
+                     if k.startswith(("decode_wall_s", "prefill_wall_s"))},
+        }
+
+    # -- scheduling -----------------------------------------------------------
+    def _admit(self, queue: list[Request]) -> None:
+        for lane, req in self.lanes.admit(queue):
+            t0 = time.perf_counter()
+            tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
+                                     dtype=torch.int64, device=self.device)
+            logits, caches_1 = self.model.prefill({"tokens": tokens})
+            if self.caches is None:
+                self._init_caches(caches_1)
+            self._insert(lane, caches_1)
+            tok = self._sample(logits)[0]     # host sync: covers the prefill
+            req.out_tokens.append(int(tok))
+            self.lane_pos[lane] = len(req.prompt)
+            self._observe_wall("prefill_wall_s", time.perf_counter() - t0)
+            self.metrics.counter("requests_admitted").inc()
+            self.tracer.instant("admit", self._tick, rid=req.rid, lane=lane,
+                                prompt_len=len(req.prompt))
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        logits = logits[..., :self.cfg.vocab_size]
+        if self.sc.temperature <= 0:
+            return torch.argmax(logits, -1).cpu().numpy()
+        probs = torch.softmax(logits / self.sc.temperature, -1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0] \
+            .cpu().numpy()
+
+    # -- main loop ------------------------------------------------------------
+    def run(self, requests: list[Request], max_ticks: int = 10_000
+            ) -> list[Request]:
+        queue = list(requests)
+        done: list[Request] = []
+        self.metrics.reset()
+        self._wall_seen = set()
+        self._tick = 0
+        for _ in range(max_ticks):
+            self._admit(queue)
+            active = [l for l, _ in self.lanes.active()]
+            if not active:
+                if not queue:
+                    break
+                continue
+            if self.tracer.enabled:
+                self.tracer.counter("lanes_active", self._tick, len(active))
+            t0 = time.perf_counter()
+            # Pool decode tick: every lane advances one token at its own
+            # position (decode_step takes per-lane positions).
+            last = torch.tensor(
+                [r.out_tokens[-1] if r else 0 for r in self.lanes.payloads()],
+                dtype=torch.int64, device=self.device)[:, None]
+            pos = torch.as_tensor(self.lane_pos, device=self.device)
+            logits, self.caches = self.model.decode(
+                {"token": last, "pos": pos, **self.caches})
+            toks = self._sample(logits)          # host sync
+            self._observe_wall("decode_wall_s", time.perf_counter() - t0)
+            self.metrics.counter("ticks").inc()
+            self.metrics.counter("decode_tokens").inc(len(active))
+            for lane in active:
+                req = self.lanes.payload(lane)
+                req.out_tokens.append(int(toks[lane]))
+                self.lane_pos[lane] += 1
+                # max_new counts *decode* tokens — the prefill-sampled token
+                # (out_tokens[0]) is in addition, not one of the max_new.
+                n_decode = len(req.out_tokens) - 1
+                finished = (toks[lane] == self.sc.eos_id
+                            or n_decode >= req.max_new)
+                horizon = self.lane_pos[lane] >= self.sc.max_len - 1
+                if finished or horizon:
+                    req.done = True
+                    req.truncated = bool(horizon and not finished)
+                    done.append(req)
+                    self.lanes.evict(lane)
+                    self.metrics.counter("requests_completed").inc()
+                    if req.truncated:
+                        self.metrics.counter("requests_truncated").inc()
+                    self.tracer.instant("evict", self._tick, rid=req.rid,
+                                        lane=lane, tokens=len(req.out_tokens),
+                                        truncated=req.truncated)
+            self._tick += 1
+        # Drain: whatever is still in flight comes back done=False, but its
+        # lane is freed — a second run() on this engine starts clean instead
+        # of double-serving stale lanes.
+        leftover = self.lanes.drain()
+        self.lane_pos[:] = 0
+        return done + leftover

@@ -195,3 +195,125 @@ def test_sweep_card_equals_cpu(cuda):
                 getattr(getattr(cpu["result"], part), name)), (part, name)
     np.testing.assert_array_equal(card["result"].budget.cpu().numpy(),
                                   cpu["result"].budget.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The model kernels: flash_attention and ssd_scan against their plain
+# versions on the card (allclose: both reassociate), and the serve path.
+# ---------------------------------------------------------------------------
+
+def _flash_case(dev, B, H, KVH, Sq, Skv, dh, dtype, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((B, H, Sq, dh), (B, KVH, Skv, dh), (B, KVH, Skv, dh))]
+
+
+@pytest.mark.parametrize("B,H,KVH,S,dh,causal,window,dtype", [
+    (2, 4, 2, 128, 64, True, 0, torch.float32),
+    (1, 8, 8, 256, 32, True, 64, torch.float32),
+    (2, 2, 1, 128, 64, False, 0, torch.float32),
+    (1, 4, 4, 128, 128, True, 0, torch.bfloat16),
+    (1, 3, 1, 777, 64, True, 100, torch.bfloat16),
+    (1, 25, 5, 4096, 64, True, 2048, torch.bfloat16),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KVH, S, dh, causal,
+                                              window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref, flash_attention_plain
+    q, k, v = _flash_case(cuda, B, H, KVH, S, S, dh, dtype)
+    reset_launches()
+    out = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q, k, v, causal, window).float(),
+        atol=tol, rtol=tol)
+    if S <= 1024:
+        torch.testing.assert_close(
+            out.float(), attention_ref(q, k, v, causal, window).float(),
+            atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_refuses(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_case(cuda, 1, 2, 1, 64, 64, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_case(cuda, 1, 2, 1, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def _ssd_case(dev, B, S, H, P, G, N, dtype, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = (0.5 * torch.randn((B, S, H, P), generator=g, device=dev)).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=g, device=dev))
+    Bm = (0.5 * torch.randn((B, S, G, N), generator=g, device=dev)).to(dtype)
+    Cm = (0.5 * torch.randn((B, S, G, N), generator=g, device=dev)).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,dtype", [
+    (2, 128, 4, 32, 2, 16, 32, torch.float32),
+    (1, 64, 2, 16, 1, 8, 16, torch.float32),
+    (1, 256, 8, 64, 1, 32, 64, torch.float32),
+    (2, 64, 4, 32, 4, 16, 32, torch.bfloat16),
+    (1, 777, 4, 100, 1, 16, 256, torch.bfloat16),
+    (1, 4096, 32, 100, 1, 16, 256, torch.bfloat16),
+    (1, 2048, 32, 64, 1, 128, 256, torch.bfloat16),
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
+    from repro_torch.models.ssm import ssd_chunked, ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _ssd_case(cuda, B, S, H, P, G, N, dtype)
+    reset_launches()
+    y, h = ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    yr, hr = ssd_chunked(*args, chunk)
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hr, atol=3e-4, rtol=3e-4)
+    if S <= 256:
+        ys, hs = ssd_ref(*args)
+        torch.testing.assert_close(y.float(), ys.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(h, hs, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_refuses(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _ssd_case(cuda, 1, 64, 2, 600, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="exceed"):
+        ssd_scan(*args, 64)
+
+
+def test_reduced_hymba_card_equals_cpu(cuda):
+    """The hybrid's serve path on the card (both kernels) against the same
+    weights on the CPU (both plain versions): prefill and two decode
+    steps allclose at 3e-2, each kernel launched once per layer."""
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    cfg = configs.get("hymba-1.5b").reduced()
+    card = build_model(cfg, cuda, seed=1)
+    cpu = build_model(cfg, "cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 90)))
+    reset_launches()
+    lg, cg = card.prefill({"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == LAUNCHES["ssd_scan"] == \
+        cfg.n_layers
+    lc, cc = cpu.prefill({"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, atol=3e-2, rtol=3e-2)
+    for t in range(2):
+        tok = torch.argmax(lc, -1)[:, None]
+        lg, cg = card.decode({"token": tok.to(cuda),
+                              "pos": torch.tensor(90 + t, device=cuda), **cg})
+        lc, cc = cpu.decode({"token": tok, "pos": torch.tensor(90 + t), **cc})
+        torch.testing.assert_close(lg.cpu(), lc, atol=3e-2, rtol=3e-2)

@@ -12,8 +12,11 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch import bench
+from repro_torch import bench, configs
 from repro_torch.core.solvers import online_torch
+from repro_torch.models.api import build_model
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serve import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -47,7 +50,9 @@ def test_guard_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"decoder.py", "annealing.py", "bilevel.py", "schedule_eval.py",
             "online.py", "online_torch.py", "gate_quantile.py",
-            "bench.py", "chip_smoke.py"} <= names
+            "bench.py", "chip_smoke.py", "attention.py", "ssm.py",
+            "engine.py", "flash_attention.py", "ssd_scan.py", "api.py",
+            "convert.py", "serve.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -66,3 +71,20 @@ def test_sweep_policies_without_device_wants_the_card():
     inten = torch.full((2, 16), 100.0)
     with pytest.raises(RuntimeError, match="cuda"):
         online_torch.sweep_policies(batch, inten, [0.5], [8], [1.5])
+
+
+def test_build_model_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(configs.get("hymba-1.5b").reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({}, configs.get("hymba-1.5b").reduced())
+
+
+def test_serve_engine_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    model = build_model(configs.get("qwen1.5-0.5b").reduced(), "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(model)
