@@ -9,7 +9,8 @@ non-zero exit code if it fails:
 
 1. card and build — CUDA must be present; prints the card's name and power
    limit and builds every CUDA kernel from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together; the model kernels' SASS
+   must hold ``HGMMA`` and ``UTMALDG`` (attention) and ``HMMA`` (SSD);
 2. kernels — each kernel's wrapper against its plain PyTorch version on the
    card, bitwise: ``schedule_delta`` at the main path's shape, a ragged
    shape and overrunning starts; ``gate_quantile`` at the online sweep's
@@ -33,13 +34,16 @@ non-zero exit code if it fails:
    ``torch.profiler``;
 6. reference — the same small solve on the card and on the CPU, fed the
    same random draws, must agree;
-7. model kernels — ``flash_attention`` and ``ssd_scan`` against their
-   plain versions on the card (allclose: both reassociate) at hymba-1.5b's
-   prefill shapes, a ragged length (S=777) and the other family's shapes
-   (qwen1.5-0.5b's full causal attention, mamba2-370m's SSD), and against
-   the naive oracles at one small shape; each timed (CUDA events, L2
-   flushed) beside its bound, its plain version and, for attention,
-   ``scaled_dot_product_attention``;
+7. model kernels — ``flash_attention`` (bf16 on wgmma with TMA-staged
+   K/V; float32 on FFMA) and ``ssd_scan`` (chunk states, the carry over
+   chunks and the outputs, on mma.sync) against their plain versions on
+   the card (allclose: both reassociate) at hymba-1.5b's prefill shapes, a
+   ragged length (S=777) and the other family's shapes (qwen1.5-0.5b's
+   full causal attention, mamba2-370m's SSD), and against the naive
+   oracles at one small shape; each timed (CUDA events, L2 flushed) beside
+   its bound, its plain version and, for attention,
+   ``scaled_dot_product_attention``, with attention's achieved TFLOP/s and
+   the SSD's three kernels' times from one profiled run of 10 calls;
 8. serve — hymba-1.5b at its published width (1.642 B parameters, random
    weights from seed 0) serves 8 offline-inference requests of 2-4k
    tokens through ``repro_torch.serve.ServeEngine`` (4 lanes, greedy,
@@ -98,6 +102,16 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_ops(lib: str, nvcc: str, ops: tuple) -> dict:
+    """How many instructions of each opcode in ``ops`` the library's
+    machine code (``cuobjdump --dump-sass``, beside ``nvcc``) holds."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    return {op: sum(f" {op}" in line for line in out.splitlines())
+            for op in ops}
 
 
 def time_cuda(fn, reps: int, flush=None) -> float:
@@ -539,9 +553,38 @@ def profile_busy(label: str, fn) -> None:
         print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
               f"{len(ts)} launches", flush=True)
     for name, ts in by_name.items():        # the port's own kernels
-        if "gate_quantile" in name or "schedule_delta" in name:
+        if any(k in name for k in ("gate_quantile", "schedule_delta",
+                                   "flash_", "ssd_")):
             print(f"  port kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
                   f"{len(ts)} launches", flush=True)
+
+
+def device_kernel_ms(fn, prefix: str, calls: int = 10) -> dict:
+    """Device time per call of each kernel whose name starts with
+    ``prefix`` (template arguments dropped), from one trace of ``calls``
+    calls of ``fn``: ``{name: (ms per launch, launches kept)}``.  On the
+    card a trace loses the port's last few launches (a trace of one call
+    kept none of its three kernels, one of ten calls the first eight
+    calls' kernels), so the mean is over the launches the trace kept."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            words = e.name.replace("(anonymous namespace)::", "") \
+                .split("<")[0].split("(")[0].split()
+            name = words[-1] if words else ""
+            if name.startswith(prefix):
+                times.setdefault(name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+    return {k: (statistics.mean(v), len(v)) for k, v in times.items()}
 
 
 def reference_phase(dev) -> None:
@@ -695,7 +738,9 @@ def flash_kernel_phase(dev) -> dict:
               f"mask) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
               f"({ops / 1e9:.3f} GFLOP over {int(live.sum()) * B * H / 1e6:.3f}"
               f" M live pairs at 989 TFLOP/s = {ops_ms:.6f} ms; "
-              f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms)",
+              f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms); "
+              f"achieved {ops / ms / 1e9:.1f} TFLOP/s against the bound's "
+              f"{ops / bound_ms / 1e9:.1f} ({bound_ms / ms:.3f} of it)",
               flush=True)
         if name == "hymba":
             record = {"name": "flash_attention", "route": "cuda",
@@ -798,6 +843,14 @@ def ssd_kernel_phase(dev) -> dict:
               f" at 3.35 TB/s = {bytes_ms:.6f} ms); {B * H} (b, h) pairs",
               flush=True)
         if name == "hymba":
+            parts = device_kernel_ms(
+                lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), "ssd_")
+            print("kernel ssd_scan hymba, its three kernels from one "
+                  "profiled run of 10 calls: " + (", ".join(
+                      f"{k} {ms:.4f} ms a call ({n} launches kept)"
+                      for k, (ms, n) in parts.items())
+                      or "no kernel in the trace (not measured)"),
+                  flush=True)
             record = {"name": "ssd_scan", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                       "replaces": "src/repro/kernels/ssd_scan.py:73",
@@ -980,6 +1033,15 @@ def main() -> int:
         print(f"build: {name}.cu -> {os.path.relpath(lib, ROOT)}", flush=True)
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # The model kernels run on the tensor cores: wgmma (HGMMA) fed by TMA
+    # (UTMALDG) for attention, mma.sync (HMMA) for the SSD.
+    flash = sass_ops(str(libs["flash_attention"]), build.nvcc(),
+                     ("HGMMA", "UTMALDG"))
+    ssd = sass_ops(str(libs["ssd_scan"]), build.nvcc(), ("HMMA",))
+    print(f"sass: flash_attention {flash}, ssd_scan {ssd}", flush=True)
+    check(min(flash.values()) > 0 and ssd["HMMA"] > 0,
+          f"the model kernels' SASS lacks tensor-core instructions: "
+          f"flash_attention {flash}, ssd_scan {ssd}")
 
     kernels = [kernel_phase(dev), gate_kernel_phase(dev)]
     main = main_path(dev)

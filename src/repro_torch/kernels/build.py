@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library at first use and
 loaded with ``ctypes``; nothing is built when a module is imported.  The
 library lands in ``build/`` beside this file (listed in ``.gitignore``),
-named by a hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded again.
+named by a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded again.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
@@ -59,9 +60,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where kernel ``name``'s library lands: named by a hash of its source,
+    every shared header under ``CSRC`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Path:

@@ -6,7 +6,9 @@ and the bound).  The wrapper takes the reference's layout — x ``[B, S, H,
 P]`` (bfloat16 or float32), dt ``[B, S, H]`` float32 (after softplus), A
 ``[H]`` float32 (< 0), B and C ``[B, S, G, N]`` (bfloat16 or float32) —
 and returns ``(y [B, S, H, P]`` in x's dtype, ``h_final [B, H, P, N]``
-float32), in one launch.  A ragged last chunk needs no padding.
+float32), in one call of the op (three kernels, chunk states, the carry
+over chunks and the outputs, counted as one launch).  A ragged last chunk
+needs no padding.
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version, the model's own
@@ -24,9 +26,9 @@ from repro_torch.kernels import build
 NAME = "ssd_scan"
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SHARED_BYTES = 232448     # dynamic shared memory a Hopper block may use
-MAX_SLICE = 128               # columns of P a block takes (64 x that outputs
-                              # in registers)
-MAX_STATE = 8192              # slice x N: the state entries a block holds
+MAX_P = 128                   # head dim: the outputs kernel keeps a row's P
+                              # outputs in registers
+MAX_STATE_TILES = 128         # 16 x 8 tiles of a chunk state [P, N]
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
@@ -64,31 +66,36 @@ def _launch(x, dt, A, Bm, Cm, chunk: int):
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, S)
+    nc = -(-S // Q)
+    x_bf16, bc_bf16 = x.dtype == torch.bfloat16, Bm.dtype == torch.bfloat16
     lib = build.load(NAME)
-    lib.ssd_scan_slice_width.argtypes = [ctypes.c_int]
-    lib.ssd_scan_slice_width.restype = ctypes.c_int
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-    Pt = lib.ssd_scan_slice_width(P)
-    smem = lib.ssd_scan_smem_bytes(P, N, Q)
-    if Pt > MAX_SLICE or Pt * N > MAX_STATE or smem > MAX_SHARED_BYTES:
+    smem = lib.ssd_scan_smem_bytes(P, N, Q, int(x_bf16), int(bc_bf16))
+    tiles = -(-P // 16) * -(-N // 8)
+    if P > MAX_P or tiles > MAX_STATE_TILES or smem > MAX_SHARED_BYTES:
         raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={Q} exceed the "
-                         f"kernel (slices of {Pt} <= {MAX_SLICE} columns, "
-                         f"{Pt} * N <= {MAX_STATE}, {smem} B of shared "
+                         f"kernel (P <= {MAX_P}, {tiles} state tiles of "
+                         f"16 x 8 <= {MAX_STATE_TILES}, {smem} B of shared "
                          f"memory <= {MAX_SHARED_BYTES})")
-    if x.numel() >= 2**31 or Bm.numel() >= 2**31:
-        raise ValueError("ssd_scan: sizes exceed the kernel's indexing")
+    if max(x.numel(), Bm.numel(), Bsz * nc * H * P * N) >= 2**31 \
+            or max(Bsz, H) > 65535:
+        raise ValueError("ssd_scan: sizes exceed the kernel's indexing or "
+                         "grid")
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     y = torch.empty_like(x)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32,
+                         device=x.device)
+    cum = torch.empty((Bsz, H, nc * Q), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-             Cm.data_ptr(), y.data_ptr(), h.data_ptr(), Bsz, S, H, G, P, N, Q,
-             int(x.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
-             stream)
+             Cm.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
+             cum.data_ptr(), Bsz, S, H, G, P, N, Q, int(x_bf16),
+             int(bc_bf16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     build.count_launch(NAME)

@@ -216,6 +216,16 @@ def _flash_case(dev, B, H, KVH, Sq, Skv, dh, dtype, seed=0):
     (1, 4, 4, 128, 128, True, 0, torch.bfloat16),
     (1, 3, 1, 777, 64, True, 100, torch.bfloat16),
     (1, 25, 5, 4096, 64, True, 2048, torch.bfloat16),
+    # the wgmma route's edges: head dims 32 and 128, lengths ragged
+    # against the 64-row tiles, a window of exactly one tile, GQA group 5,
+    # non-causal
+    (1, 4, 2, 200, 32, True, 0, torch.bfloat16),
+    (2, 4, 2, 200, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 65, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 1000, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 1000, 64, True, 64, torch.bfloat16),
+    (1, 25, 5, 333, 64, True, 0, torch.bfloat16),
+    (2, 4, 2, 300, 64, False, 0, torch.bfloat16),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KVH, S, dh, causal,
                                               window, dtype):
@@ -266,6 +276,13 @@ def _ssd_case(dev, B, S, H, P, G, N, dtype, seed=0):
     (1, 777, 4, 100, 1, 16, 256, torch.bfloat16),
     (1, 4096, 32, 100, 1, 16, 256, torch.bfloat16),
     (1, 2048, 32, 64, 1, 128, 256, torch.bfloat16),
+    # the chunk-parallel kernels' edges: P = 100 with odd H (200-byte head
+    # rows, 8- but not 16-byte aligned), one step past a chunk, G = 2, and
+    # float32 at mamba2's P = 64, N = 128
+    (1, 300, 5, 100, 1, 16, 256, torch.bfloat16),
+    (1, 257, 4, 100, 1, 16, 256, torch.bfloat16),
+    (1, 512, 4, 64, 2, 16, 128, torch.bfloat16),
+    (1, 300, 4, 64, 1, 128, 128, torch.float32),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
     from repro_torch.models.ssm import ssd_chunked, ssd_ref

@@ -5,6 +5,8 @@
   machine has no JAX, and the port keeps its own copies.
 * Entry points run on the card unless asked for the CPU: without a card,
   calling one with no ``device`` raises instead of running on the CPU.
+* A kernel's built library is named by its source, the shared headers and
+  the flags, so editing any of them rebuilds it.
 """
 import ast
 import pathlib
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch import bench, configs
 from repro_torch.core.solvers import online_torch
+from repro_torch.kernels import build
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import ServeEngine
@@ -88,3 +91,23 @@ def test_serve_engine_without_device_wants_the_card():
     model = build_model(configs.get("qwen1.5-0.5b").reduced(), "cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(model)
+
+
+def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
+    """Editing, adding or removing a csrc/*.cuh header, or changing the
+    flags, gives the kernel's library a new name: no stale build loads."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first            # stable
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "extra.cuh").write_text("// new\n")
+    third = build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "extra.cuh").unlink()
+    assert build.library_path("k") == second
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("k") != second
