@@ -12,12 +12,20 @@ non-zero exit code if it fails:
    one ``nvcc`` per source, all started together; the model kernels' SASS
    must hold ``HGMMA`` and ``UTMALDG`` (attention) and ``HMMA`` (SSD);
 2. kernels — each kernel's wrapper against its plain PyTorch version on the
-   card, bitwise: ``schedule_delta`` at the main path's shape, a ragged
-   shape and overrunning starts; ``gate_quantile`` at the online sweep's
-   shape (6000 rows x 768 epochs), a ragged shape (max_window 200 > 128,
-   ties) and an edge shape (theta 0 and 1, window 1, E < window).  Times
-   both with CUDA events (L2 flushed) beside each kernel's bound and a
-   one-call library yardstick where there is one;
+   card, bitwise (bit patterns, so -0.0 != +0.0): ``schedule_delta`` at the
+   main path's shape, a ragged shape, overrunning starts, unaligned
+   instance slices (P*T = 35), one instance over 257 blocks (B=1,
+   P*T >= 2**20), a horizon beyond shared memory (H = 60000) and views
+   not 16-byte aligned; ``gate_quantile`` at the online sweep's shape
+   (6000 rows x 768 epochs), a ragged shape (max_window 200 > 128, ties),
+   an edge shape (theta 0 and 1, window 1, E < window), and the sliding
+   kernel's edges (segment boundaries inside hourly rows, max_window 256
+   and 257 on each side of the register / shared-memory split, a
+   1000-slot window, -0.0/+0.0 ties, an all-equal trace, thetas outside
+   [0, 1]; these also held to the plain version on the CPU).  Times the
+   main shapes (and the gate's ragged and edge shapes) with CUDA events
+   (L2 flushed) beside each kernel's bound and a one-call library
+   yardstick where there is one;
 3. main path — ``repro_torch.bench.run_batch`` on the paper's default cell
    (n=10 jobs x k=4 tasks, M=5 homogeneous, AU-SA, S=1, carbon objective,
    1500-epoch windows, SA pop 96 x 150 iterations) at 1000 instances, with
@@ -96,6 +104,17 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def same_bits(x, y) -> bool:
+    """Equal shape, dtype and bit patterns (torch.equal takes -0.0 ==
+    +0.0)."""
+    import torch
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.is_floating_point():
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -164,16 +183,25 @@ def kernel_phase(dev) -> dict:
         "main": (INSTANCES, 96, 40, 1500, 0, 1400),
         "ragged": (7, 13, 37, 333, 0, 300),
         "overrun": (5, 9, 11, 100, -150, 260),
+        "unaligned": (3, 5, 7, 200, 0, 210),        # P*T = 35
+        "split": (1, 256, 4100, 1500, -20, 1520),   # P*T >= 2**20
+        "long": (3, 17, 19, 60000, -100, 60100),    # H+1 > shared memory
+        "offset": (3, 7, 9, 50, -5, 60),            # views 4 bytes in
     }
     max_err = 0.0
     for name, shape in shapes.items():
         start, dur, cum = case(*shape)
+        if name == "offset":
+            buf = torch.empty(start.numel() + 1, dtype=torch.int32,
+                              device=dev)
+            buf[1:] = start.reshape(-1)
+            start = buf[1:].view(start.shape)
         out = schedule_delta(start, dur, cum)
         ref = schedule_delta_ref(start, dur, cum)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         max_err = max(max_err, err)
-        check(out.shape == ref.shape and torch.equal(out, ref),
+        check(same_bits(out, ref),
               f"schedule_delta != schedule_delta_ref at the {name} shape "
               f"{shape[:4]} (max |diff| {err})")
         print(f"kernel schedule_delta {name} {tuple(shape[:4])}: bitwise "
@@ -191,6 +219,8 @@ def kernel_phase(dev) -> dict:
     print(f"kernel schedule_delta main shape: {ms:.4f} ms (L2 flushed), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({moved / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+    print_device_ms("schedule_delta main shape",
+                    lambda: schedule_delta(start, dur, cum), "schedule_delta")
     return {"name": "schedule_delta", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/schedule_eval.cu",
             "replaces": "src/repro/kernels/schedule_eval.py:76",
@@ -205,7 +235,11 @@ def gate_cases(dev) -> dict:
     ``bench.online_batch`` x thetas 0.3/0.4/0.5 x windows 48/96, laid out
     as ``sweep_policies`` lays them out; ragged: 7 rows x 257 epochs,
     windows up to max_window 200 > 128, per-epoch thetas, ties injected;
-    edge: theta 0 and 1, window 1, and windows wider than E.
+    edge: theta 0 and 1, window 1, and windows wider than E; then the
+    sliding kernel's edges (check only, not timed): segment boundaries
+    inside hourly rows of 300 epochs; max_window 256 and 257, each side of
+    the register / shared-memory split; a 1000-slot window over 1500
+    epochs; -0.0/+0.0 ties; an all-equal trace; thetas outside [0, 1].
     """
     import torch
     from repro_torch import bench
@@ -222,6 +256,24 @@ def gate_cases(dev) -> dict:
     ragged = torch.rand((7, 257), generator=g) * 800 + 50
     ragged[:, ::5] = ragged[:, :1]
     edge = torch.rand((4, 40), generator=g) * 800 + 50
+
+    def sliding(E, max_window, windows, kind="hourly"):
+        R = len(windows)
+        hours = torch.rand((R, -(-E // 4)), generator=g) * 800 + 50
+        x = hours.repeat_interleave(4, dim=1)[:, :E].contiguous()
+        if kind == "zeros":
+            x = torch.where(torch.rand((R, E), generator=g) < 0.5, -0.0, 0.0)
+            x[torch.rand((R, E), generator=g) < 0.2] = 1.0
+        elif kind == "flat":
+            x = torch.full((R, E), 371.25)
+        th = torch.rand((R, E), generator=g)
+        th[:, ::7] = 0.0
+        th[:, 3::7] = 1.0
+        if kind == "theta_out":
+            th = th * 3.0 - 1.0
+        return (x.to(dev), th.to(dev),
+                torch.tensor(windows, dtype=torch.int32, device=dev),
+                max_window)
     return {
         "main": (rows[0].reshape(-1, E).contiguous(),
                  rows[1].reshape(-1, E).contiguous(),
@@ -235,6 +287,13 @@ def gate_cases(dev) -> dict:
                  .expand(4, 40).contiguous().to(dev),
                  torch.tensor([1, 1, 64, 64], dtype=torch.int32, device=dev),
                  64),
+        "segment": sliding(300, 96, [96, 48, 33, 32, 1, 0]),
+        "reg_widest": sliding(300, 256, [256, 255, 129, 97, 400, 2]),
+        "shared_narrowest": sliding(300, 257, [257, 256, 1, 300]),
+        "shared_wide": sliding(1500, 1000, [1000, 700, 3]),
+        "zeros": sliding(300, 96, [96, 48, 7, 1], "zeros"),
+        "flat": sliding(300, 200, [200, 96, 5, 1], "flat"),
+        "theta_out": sliding(300, 96, [96, 48, 7, 1], "theta_out"),
     }
 
 
@@ -262,14 +321,23 @@ def gate_kernel_phase(dev) -> dict:
         got = gate_quantile_stats(inten, theta, window, mw)
         want = gate_quantile_stats_ref(inten, theta, window, mw)
         torch.cuda.synchronize()
-        same = all(x.dtype == y.dtype and torch.equal(x, y)
-                   for x, y in zip(got, want))
+        same = all(same_bits(x, y) for x, y in zip(got, want))
         fin = torch.isfinite(want[0]) & torch.isfinite(want[1])
         err = max(float(torch.where(fin, (got[i] - want[i]).abs(), 0.0).max())
                   for i in (0, 1))
         check(same, f"gate_quantile != gate_quantile_stats_ref at the {name} "
               f"shape {tuple(inten.shape)} (max |diff| {err})")
         R, E = inten.shape
+        if name not in ("main", "ragged", "edge"):
+            cpu = gate_quantile_stats_ref(inten.cpu(), theta.cpu(),
+                                          window.cpu(), mw)
+            check(all(same_bits(x.cpu(), y) for x, y in zip(got, cpu)),
+                  f"gate_quantile != the plain version on the CPU at the "
+                  f"{name} shape {tuple(inten.shape)}")
+            print(f"kernel gate_quantile {name} (R={R}, E={E}, max_window="
+                  f"{mw}, windows {window.tolist()}): bitwise equal to the "
+                  "plain version on the card and on the CPU", flush=True)
+            continue
         reps = KERNEL_REPS if name == "main" else 5
         ms = time_cuda(lambda: gate_quantile_stats(inten, theta, window, mw),
                        reps, flush)
@@ -296,6 +364,8 @@ def gate_kernel_phase(dev) -> dict:
               f"= {bytes_ms:.6f} ms; {ops / 1e9:.6f} G compares at 67 T/s "
               f"= {ops_ms:.6f} ms)", flush=True)
         if name == "main":
+            print_device_ms("gate_quantile main", lambda: gate_quantile_stats(
+                inten, theta, window, mw), "gate_slide")
             record = {"name": "gate_quantile", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/gate_quantile.cu",
                       "replaces": "src/repro/kernels/gate_quantile.py:96",
@@ -553,7 +623,7 @@ def profile_busy(label: str, fn) -> None:
         print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
               f"{len(ts)} launches", flush=True)
     for name, ts in by_name.items():        # the port's own kernels
-        if any(k in name for k in ("gate_quantile", "schedule_delta",
+        if any(k in name for k in ("gate_slide", "schedule_delta",
                                    "flash_", "ssd_")):
             print(f"  port kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
                   f"{len(ts)} launches", flush=True)
@@ -585,6 +655,19 @@ def device_kernel_ms(fn, prefix: str, calls: int = 10) -> dict:
                 times.setdefault(name, []).append(
                     e.time_range.elapsed_us() / 1e3)
     return {k: (statistics.mean(v), len(v)) for k, v in times.items()}
+
+
+def print_device_ms(label: str, fn, prefix: str) -> None:
+    """The kernel's own device time per launch, from a trace of 10 calls
+    (L2 not flushed between them).  The event times above run from the
+    end of the L2 flush to the kernel's end, so they also hold any time
+    the device waits for the host to enqueue the kernel."""
+    parts = device_kernel_ms(fn, prefix)
+    print(f"kernel {label}, device time per launch from one profiled run of "
+          "10 calls: " + (", ".join(f"{k} {ms:.4f} ms ({n} launches kept)"
+                                    for k, (ms, n) in parts.items())
+                          or "no kernel in the trace (not measured)"),
+          flush=True)
 
 
 def reference_phase(dev) -> None:

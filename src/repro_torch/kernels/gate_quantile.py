@@ -2,10 +2,14 @@
 
 Replaces the TPU kernel ``repro.kernels.gate_quantile.gate_quantile_stats_pallas``
 with the hand-written CUDA kernel ``csrc/gate_quantile.cu`` (its header
-gives the design and the bound).  The wrapper takes rows of forecasts —
-intensity and theta ``[R, E]`` float32, window ``[R]`` int32 and the static
-``max_window`` — and returns ``(a, b, n)``, each ``[R, E]``, in one launch
-for all rows.
+gives the design and the bound): a sliding-window selection, one warp per
+segment of a row, which ranks the segment's first window once and then
+keeps every slot's stable rank up to date as the window slides one epoch
+(the slot that leaves, the slot that enters).  Windows up to 256 slots
+live in registers; wider ones keep their ranks in shared memory.  The
+wrapper takes rows of forecasts — intensity and theta ``[R, E]`` float32,
+window ``[R]`` int32 and the static ``max_window`` — and returns
+``(a, b, n)``, each ``[R, E]``, in one launch for all rows.
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version
@@ -24,10 +28,11 @@ from repro_torch.kernels.ref import gate_quantile_stats_ref
 
 NAME = "gate_quantile"
 
-# Dynamic shared memory one block may use on Hopper (bytes); the kernel
-# stages 32 + max_window - 1 floats.
+# Dynamic shared memory one block may use on Hopper (bytes).  A window
+# wider than the registers hold keeps one warp's ranks in shared memory:
+# WIDE_SEGMENT + max_window - 1 ints (the kernel's kWideSeg).
 MAX_SHARED_BYTES = 232448
-TILE_EPOCHS = 32
+WIDE_SEGMENT = 32
 
 
 def _check(intensity: torch.Tensor, theta: torch.Tensor,
@@ -58,10 +63,10 @@ def _launch(intensity: torch.Tensor, theta: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     R, E = intensity.shape
-    if 4 * (TILE_EPOCHS + max_window - 1) > MAX_SHARED_BYTES:
+    if 4 * (WIDE_SEGMENT + max_window - 1) > MAX_SHARED_BYTES:
         raise ValueError(f"gate_quantile: max_window={max_window} needs more "
                          "shared memory than a block has")
-    if R * -(-E // TILE_EPOCHS) >= 2**31:
+    if R * -(-E // WIDE_SEGMENT) >= 2**31:
         raise ValueError("gate_quantile: sizes exceed the kernel's grid")
     lib = build.load(NAME)
     fn = lib.gate_quantile_launch

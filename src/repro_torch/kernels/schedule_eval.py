@@ -2,9 +2,12 @@
 
 Replaces the TPU kernel ``repro.kernels.schedule_eval.schedule_delta_pallas``
 with the hand-written CUDA kernel ``csrc/schedule_eval.cu`` (its header
-gives the design and the bound).  The wrapper takes the port's batched
-layout — start/dur ``[B, Pop, T]`` int32 and cum ``[B, H+1]`` float32 —
-and returns ``[B, Pop, T]`` float32, in one launch for the whole batch.
+gives the design and the bound): instance-major blocks, each staging its
+instance's ``cum`` row in shared memory with ``cp.async`` while its
+16-byte start/dur loads are in flight, then gathering from shared memory.
+The wrapper takes the port's batched layout — start/dur ``[B, Pop, T]``
+int32 and cum ``[B, H+1]`` float32 — and returns ``[B, Pop, T]``
+float32, in one launch for the whole batch.
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version :func:`repro_torch.kernels.ref.schedule_delta_ref`.

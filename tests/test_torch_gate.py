@@ -11,14 +11,22 @@ stable ``torch.sort`` of the masked windows), so here:
   rounds each op; on these cases, and on 300 AU-SA sweep windows, no
   threshold differed at all);
 * ``dirty_mask`` equals the reference's on both of its paths and a direct
-  ``np.quantile`` loop.
+  ``np.quantile`` loop;
+* a step-by-step emulation of the CUDA kernel's sliding-window selection
+  (``sliding_stats`` below: segments, the register ring, removal,
+  insertion, the tail cut at E, the register / shared-memory width split)
+  is held bitwise to the plain version and to the reference's Pallas
+  kernel, so the kernel's algorithm is tested where the kernel cannot run.
 
 The kernel itself is compared with the plain version on the card in
 ``test_torch_gpu.py``.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 from numpy.testing import assert_allclose
 
 import jax.numpy as jnp
@@ -27,9 +35,11 @@ from repro.core.solvers import online_jax
 from repro.kernels import ops as jops
 from repro.kernels.gate_quantile import gate_quantile_stats_pallas
 from repro_torch.core.solvers import online_torch
-from repro_torch.kernels import LAUNCHES, ops, reset_launches
-from repro_torch.kernels.gate_quantile import gate_quantile_stats
-from repro_torch.kernels.ref import gate_threshold_ref
+from repro_torch.kernels import LAUNCHES, build, ops, reset_launches
+from repro_torch.kernels.gate_quantile import (WIDE_SEGMENT,
+                                               gate_quantile_stats)
+from repro_torch.kernels.ref import (gate_quantile_stats_ref,
+                                     gate_threshold_ref)
 
 RTOL = 1e-6
 
@@ -221,3 +231,231 @@ def test_gate_quantile_rejects_bad_inputs(bad):
         max_window = 0
     with pytest.raises((TypeError, ValueError)):
         gate_quantile_stats(inten, theta, window, max_window)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's sliding-window selection, emulated step by step.
+
+def kernel_constants() -> dict:
+    """``kSeg``, ``kRegWindow`` and ``kWideSeg`` as ``gate_quantile.cu``
+    defines them, so the emulation slides as the kernel does."""
+    src = (build.CSRC / "gate_quantile.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("kSeg", "kRegWindow", "kWideSeg")}
+
+
+EMPTY = 1 << 30          # the kernel's kEmpty: an empty ring slot's rank
+
+
+def _ranks_of(theta, n, top):
+    """The kernel's ``ranks_of``: one float32 product, floor, clamp."""
+    lo_ = int(torch.floor(theta * float(n - 1)))
+    return (min(max(lo_, 0), top), min(max(min(lo_ + 1, n - 1), 0), top))
+
+
+def _pick(vals, ranks, r):
+    hit = vals[ranks == r]
+    assert hit.numel() <= 1, "two slots share a rank"
+    return hit[0] if hit.numel() else torch.tensor(float("inf"))
+
+
+def _slide_regs(x, th, w, top, t0, t1, out):
+    """The register path: a ring of ``w`` slots (slot i is lane i % 32,
+    register i // 32); an empty slot holds NaN and rank ``EMPTY``."""
+    E = x.shape[0]
+    K = -(-w // 32)
+    i = torch.arange(32 * K)
+    n0 = min(w, E - t0)
+    val = torch.where(i < n0, x[(t0 + i).clamp_max(E - 1)], float("nan"))
+    # The first window by counting; ring order is epoch order here.
+    before = i[:, None] < i[None, :]                      # slot u before i
+    rank = torch.where(before, val[:, None] <= val[None, :],
+                       val[:, None] < val[None, :]).sum(0)
+    rank = torch.where(i < n0, rank, EMPTY)
+    head = 0
+    for t in range(t0, t1):
+        lo, hi = _ranks_of(th[t], min(w, E - t), top)
+        out[0][t], out[1][t] = _pick(val, rank, lo), _pick(val, rank, hi)
+        if t + 1 == t1:
+            break
+        xo = x[t]
+        xn = x[t + w] if t + w < E else torch.tensor(float("nan"))
+        g = val > xn
+        rank = rank + g.int() - (val >= xo).int()
+        greater = int(g.sum()) - int(xo > xn)       # the leaving slot's share
+        val[head] = xn                               # it takes the slot over
+        rank[head] = w - 1 - greater if bool(xn == xn) else EMPTY
+        head = head + 1 if head + 1 < w else 0
+
+
+def _slide_shared(x, th, w, top, t0, t1, wide_seg, max_window, out):
+    """The shared-memory path: ranks indexed by epoch in a span of
+    ``wide_seg + max_window - 1``, values read from the row."""
+    E = x.shape[0]
+    rk = torch.full((wide_seg + max_window - 1,), -1)
+    n0 = min(w, E - t0)
+    v = x[t0:t0 + n0]
+    u = torch.arange(n0)
+    rk[:n0] = torch.where(u[:, None] < u[None, :], v[:, None] <= v[None, :],
+                          v[:, None] < v[None, :]).sum(0)
+    for t in range(t0, t1):
+        n = min(w, E - t)
+        lo, hi = _ranks_of(th[t], n, top)
+        win, r = x[t:t + n], rk[t - t0:t - t0 + n]
+        out[0][t], out[1][t] = _pick(win, r, lo), _pick(win, r, hi)
+        if t + 1 == t1:
+            break
+        xo = x[t]
+        rest = win[1:]                      # win[0] is the slot that leaves
+        g = rest > (x[t + w] if t + w < E else float("nan"))
+        rk[t - t0 + 1:t - t0 + n] += g.int() - (rest >= xo).int()
+        if t + w < E:
+            rk[t + w - t0] = w - 1 - int(g.sum())
+
+
+def sliding_stats(intensity, theta, window, max_window, seg=None,
+                  reg_window=None, wide_seg=None):
+    """``(a, b, n)`` as the CUDA kernel computes them, row by row and
+    segment by segment; the kernel's constants unless overridden."""
+    c = kernel_constants()
+    seg = seg or c["kSeg"]
+    reg_window = reg_window or c["kRegWindow"]
+    wide_seg = wide_seg or c["kWideSeg"]
+    R, E = intensity.shape
+    a = torch.full((R, E), float("nan"))
+    b = torch.full((R, E), float("nan"))
+    n = torch.zeros((R, E), dtype=torch.int32)
+    for r in range(R):
+        w = min(int(window[r]), max_window)
+        if w <= 0:
+            a[r], b[r] = float("inf"), float("inf")
+            continue
+        n[r] = (E - torch.arange(E)).clamp_max(w).to(torch.int32)
+        step = seg if max_window <= reg_window else wide_seg
+        for t0 in range(0, E, step):
+            t1 = min(t0 + step, E)
+            out = (a[r], b[r])
+            if max_window <= reg_window:
+                _slide_regs(intensity[r], theta[r], w, max_window - 1, t0,
+                            t1, out)
+            else:
+                _slide_shared(intensity[r], theta[r], w, max_window - 1, t0,
+                              t1, wide_seg, max_window, out)
+    return a, b, n
+
+
+def trace(kind, E, seed):
+    """Forecast rows the gate sees: ``hourly`` repeats each value over 4
+    epochs as ``core/carbon.py`` does, ``flat`` is all-equal, ``zeros``
+    mixes -0.0 and +0.0 (ties by float ==, distinct bit patterns)."""
+    rng = np.random.default_rng(seed)
+    if kind == "hourly":
+        x = np.repeat(rng.uniform(50, 900, -(-E // 4)), 4)[:E]
+    elif kind == "flat":
+        x = np.full(E, rng.uniform(50, 900))
+    elif kind == "zeros":
+        x = np.where(rng.uniform(size=E) < 0.5, -0.0, 0.0)
+        x[rng.uniform(size=E) < 0.2] = 1.0
+    else:
+        x = rng.uniform(50, 900, E)
+    return x.astype(np.float32)
+
+
+def exact_bits(got, want, ctx):
+    """Equal as bit patterns (-0.0 != +0.0), and of one dtype."""
+    for name, g, w in zip("abn", got, want):
+        assert g.dtype == w.dtype, f"{ctx} {name}: dtype"
+        gi, wi = (g.view(torch.int32) if g.is_floating_point() else g,
+                  w.view(torch.int32) if w.is_floating_point() else w)
+        assert torch.equal(gi, wi), \
+            f"{ctx} {name}: {int((gi != wi).sum())} elements differ"
+
+
+def test_wrapper_admits_what_the_shared_path_holds():
+    """The wrapper's shared-memory check uses the kernel's segment."""
+    assert WIDE_SEGMENT == kernel_constants()["kWideSeg"]
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(kind=st.sampled_from(["hourly", "flat", "zeros", "random"]),
+       E=st.integers(1, 300),
+       windows=st.lists(st.sampled_from([0, 1, 2, 3, 31, 32, 33, 48, 96,
+                                         200, 256, 400]),
+                        min_size=1, max_size=3),
+       max_window=st.sampled_from([1, 2, 48, 96, 200, 256]),
+       seg=st.sampled_from([None, 5, 32, 64]),
+       theta_kind=st.sampled_from(["uniform", "edges", "zero", "one",
+                                   "outside"]),
+       seed=st.integers(0, 2**16))
+def test_sliding_emulation_equals_plain_property(kind, E, windows,
+                                                 max_window, seg, theta_kind,
+                                                 seed):
+    """The register path (max_window <= kRegWindow) with the kernel's
+    segment and shorter ones (more boundaries inside a row), per-epoch
+    thetas with 0 and 1 (and outside [0, 1], where lo/hi are clamped as
+    the plain version's gather clamps them), windows 1, 2 and wider than
+    E."""
+    R = len(windows)
+    inten = torch.as_tensor(np.stack([trace(kind, E, seed + r)
+                                      for r in range(R)]))
+    rng = np.random.default_rng(seed)
+    theta = {"uniform": rng.uniform(0, 1, (R, E)),
+             "edges": rng.choice([0.0, 1.0, 0.5], (R, E)),
+             "zero": np.zeros((R, E)), "one": np.ones((R, E)),
+             "outside": rng.uniform(-1, 2, (R, E))}[theta_kind]
+    theta = torch.as_tensor(theta.astype(np.float32))
+    window = torch.tensor(windows, dtype=torch.int32)
+    got = sliding_stats(inten, theta, window, max_window, seg=seg)
+    want = gate_quantile_stats_ref(inten, theta, window, max_window)
+    exact_bits(got, want, f"{kind} E={E} windows={windows} mw={max_window}")
+
+
+@pytest.mark.parametrize("max_window,windows", [
+    (256, [256, 255, 129]),          # the register path's widest
+    (257, [257, 256, 1]),            # the shared-memory path's narrowest
+    (300, [300, 40, 0])])
+@pytest.mark.parametrize("kind", ["hourly", "zeros"])
+def test_sliding_emulation_width_split(max_window, windows, kind):
+    """Each side of kRegWindow, with the kernel's own segments."""
+    E = 301
+    inten = torch.as_tensor(np.stack([trace(kind, E, r) for r in range(3)]))
+    theta = torch.as_tensor(np.random.default_rng(max_window).uniform(
+        0, 1, (3, E)).astype(np.float32))
+    theta[:, ::9] = 0.0
+    theta[:, 4::9] = 1.0
+    window = torch.tensor(windows, dtype=torch.int32)
+    got = sliding_stats(inten, theta, window, max_window)
+    want = gate_quantile_stats_ref(inten, theta, window, max_window)
+    exact_bits(got, want, f"max_window={max_window} {kind}")
+
+
+@pytest.mark.parametrize("kind,E,window,max_window,theta,seg", [
+    ("hourly", 300, 96, 96, 0.3, None),      # E not a multiple of kSeg
+    ("hourly", 257, 48, 96, 0.5, 64),        # segments inside the row
+    ("flat", 200, 96, 96, 0.4, 32),
+    ("zeros", 130, 33, 48, 0.5, 16),
+    ("random", 40, 64, 64, 1.0, None),       # window wider than E
+    ("random", 100, 1, 96, 0.0, 8),
+    ("random", 100, 2, 2, 0.9, 8),
+    ("hourly", 70, 280, 300, 0.6, None),     # shared path, window > E
+    ("zeros", 90, 270, 270, 0.0, None)])
+def test_sliding_emulation_equals_pallas_kernel(kind, E, window, max_window,
+                                                theta, seg):
+    """Against the reference's Pallas kernel (interpret mode): bitwise,
+    except that the Pallas kernel selects by a masked sum, which turns a
+    selected -0.0 into +0.0 (the stable sort, the port's contract, keeps
+    -0.0); so zeros are held equal as values, and bitwise to the plain
+    version."""
+    inten = trace(kind, E, E + window)
+    args = (torch.as_tensor(inten)[None], torch.full((1, E), theta),
+            torch.tensor([window], dtype=torch.int32), max_window)
+    got = [x[0] for x in sliding_stats(*args, seg=seg)]
+    ctx = f"{kind} E={E} window={window}"
+    exact_bits(got, [x[0] for x in gate_quantile_stats_ref(*args)], ctx)
+    want = [torch.as_tensor(np.array(x)) for x in pallas_stats(
+        inten, theta, window, max_window)]
+    for name, g, w in zip("abn", got, want):
+        exact(w.numpy(), g.numpy(), f"{ctx} {name}")      # -0.0 == +0.0
+        nz = w != 0
+        exact_bits([g[nz]], [w[nz]], f"{ctx} {name}, non-zero")

@@ -47,17 +47,47 @@ def _case(dev, B, P, T, H, lo, hi, seed=0):
     return start, dur, cum
 
 
+def _same_bits(x, y):
+    """Equal dtype and bit patterns (torch.equal takes -0.0 == +0.0)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.is_floating_point():
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
 @pytest.mark.parametrize("shape", [(1000, 96, 40, 1500, 0, 1400),
                                    (7, 13, 37, 333, 0, 300),
                                    (1, 1, 1, 1, -5, 5),
-                                   (5, 9, 11, 100, -150, 260)])
+                                   (5, 9, 11, 100, -150, 260),
+                                   # P*T = 35 and 6: unaligned instance slices
+                                   (3, 5, 7, 200, 0, 210),
+                                   (4, 3, 2, 100, -10, 90),
+                                   # B=1, P*T >= 2**20: one instance, 257 blocks
+                                   (1, 256, 4100, 1500, -20, 1520),
+                                   # a block that loads two batches
+                                   (2, 9, 1000, 5000, 0, 5100),
+                                   # H+1 beyond shared memory: gathered from L2
+                                   (3, 17, 19, 60000, -100, 60100)])
 def test_schedule_delta_bitwise(cuda, shape):
     start, dur, cum = _case(cuda, *shape)
     reset_launches()
     out = schedule_delta(start, dur, cum)
     torch.cuda.synchronize()
     assert LAUNCHES["schedule_eval"] == 1
-    assert torch.equal(out, schedule_delta_ref(start, dur, cum))
+    assert _same_bits(out, schedule_delta_ref(start, dur, cum))
+
+
+def test_schedule_delta_unaligned_pointers(cuda):
+    """Views that start one element into their storage: not 16-byte
+    aligned, so the kernel takes every element on its own."""
+    start, dur, cum = _case(cuda, 3, 7, 9, 50, -5, 60)
+    s1 = torch.empty(start.numel() + 1, dtype=torch.int32, device=cuda)
+    s1[1:] = start.reshape(-1)
+    view = s1[1:].view(start.shape)
+    out = schedule_delta(view, dur, cum)
+    torch.cuda.synchronize()
+    assert _same_bits(out, schedule_delta_ref(start, dur, cum))
 
 
 def test_schedule_delta_rejects_non_contiguous(cuda):
@@ -118,9 +148,43 @@ def _gate_case(dev, shape):
     """Gate rows at chip_smoke.py's shapes: the sweep's main shape (1000
     paper forecasts x thetas 0.3/0.4/0.5 x windows 48/96), a ragged one
     (max_window 200 > 128, ties injected) and an edge one (theta 0 and 1,
-    window 1, E < window)."""
+    window 1, E < window); and the sliding kernel's edges: segment
+    boundaries inside rows of hourly traces (E = 300, not a multiple of
+    the 128-epoch segment), each side of the register / shared-memory
+    split (max_window 256 and 257) and a wide shared-memory window, -0.0
+    and +0.0 ties, an all-equal trace, and thetas outside [0, 1] on both
+    paths."""
     g = torch.Generator(device="cpu")
     g.manual_seed(3)
+    if shape in ("segment", "reg_widest", "shared_narrowest", "shared_wide",
+                 "zeros", "flat", "theta_out", "theta_out_wide"):
+        E = {"shared_wide": 1500}.get(shape, 300)
+        max_window, window = {
+            "segment": (96, [96, 48, 33, 32, 1, 0]),
+            "reg_widest": (256, [256, 255, 129, 97, 400, 2]),
+            "shared_narrowest": (257, [257, 256, 1, 300]),
+            "shared_wide": (1000, [1000, 700, 3]),
+            "zeros": (96, [96, 48, 7, 1]),
+            "flat": (200, [200, 96, 5, 1]),
+            "theta_out": (96, [96, 48, 7, 1]),
+            "theta_out_wide": (300, [300, 96, 1])}[shape]
+        R = len(window)
+        hours = torch.rand((R, -(-E // 4)), generator=g) * 800 + 50
+        inten = hours.repeat_interleave(4, dim=1)[:, :E].contiguous()
+        if shape == "zeros":
+            inten = torch.where(torch.rand((R, E), generator=g) < 0.5,
+                                -0.0, 0.0)
+            inten[torch.rand((R, E), generator=g) < 0.2] = 1.0
+        elif shape == "flat":
+            inten = torch.full((R, E), 371.25)
+        theta = torch.rand((R, E), generator=g)
+        theta[:, ::7] = 0.0
+        theta[:, 3::7] = 1.0
+        if shape.startswith("theta_out"):
+            theta = theta * 3.0 - 1.0
+        return (inten.to(dev), theta.to(dev),
+                torch.tensor(window, dtype=torch.int32, device=dev),
+                max_window)
     if shape == "main":
         _, _, inten, _ = bench.online_batch(
             bench.BenchSetup(stretch=1.5, instances=1000), dev)
@@ -149,7 +213,10 @@ def _gate_case(dev, shape):
             max_window)
 
 
-@pytest.mark.parametrize("shape", ["main", "ragged", "edge"])
+@pytest.mark.parametrize("shape", ["main", "ragged", "edge", "segment",
+                                   "reg_widest", "shared_narrowest",
+                                   "shared_wide", "zeros", "flat",
+                                   "theta_out", "theta_out_wide"])
 def test_gate_quantile_bitwise(cuda, shape):
     inten, theta, window, max_window = _gate_case(cuda, shape)
     reset_launches()
@@ -158,7 +225,12 @@ def test_gate_quantile_bitwise(cuda, shape):
     assert LAUNCHES["gate_quantile"] == 1
     want = gate_quantile_stats_ref(inten, theta, window, max_window)
     for name, x, y in zip("abn", got, want):
-        assert x.dtype == y.dtype and torch.equal(x, y), name
+        assert _same_bits(x, y), name
+    if shape != "main":      # the plain version on the CPU, too
+        cpu = gate_quantile_stats_ref(inten.cpu(), theta.cpu(), window.cpu(),
+                                      max_window)
+        for name, x, y in zip("abn", got, cpu):
+            assert _same_bits(x.cpu(), y), f"{name} vs the CPU"
 
 
 def test_gate_quantile_rejects_non_contiguous(cuda):
