@@ -59,13 +59,33 @@ non-zero exit code if it fails:
    request done with 33 tokens, all logits finite, each kernel launched
    once per layer per prefill (256);
 9. serve reference — hymba at full width cut to 2 layers, the same weights
-   on the card and on the CPU: prefill and 4 decode steps allclose.
+   on the card and on the CPU: prefill and 4 decode steps allclose;
+10. forecast kernels — ``gate_quantile`` at the rolling gate's shape
+    (1000 instances x 3 seeds x 22 issues x 512 epochs, window 96, theta
+    0.3) and ``schedule_delta`` at the MPC's (2000 (instance, seed) rows,
+    each with its own forecast ``cum`` of 513), bitwise against their
+    plain versions, timed;
+11. forecast path — ``repro_torch.bench.run_forecast`` (the
+    forecast-robustness cell: day-ahead gate, rolling gate and MPC
+    replanner at scales 0/0.5/1 x every 24/48/96, the perfect gate and the
+    offline bound) at 1000 instances, with the launch counts read around
+    it: every schedule complete and validator-clean; at scale 0 the
+    rolling and day-ahead masks equal ``dirty_mask`` on the truth, bitwise,
+    and the card's equal the CPU's on 8 instances; every MPC replan keeps
+    its frozen prefix, meets its deadline and, at scale 0, never ends above
+    its baseline;
+12. structure path — the structure sweep's full grid (60 cells x 16 =
+    960 instances, horizon 2048, with the offline SA bound), launch counts
+    read around it, then the dispatch-only TINY grid on the card against
+    ``tests/golden/structure_tiny.json``.
 
-The last three lines are the ``kernels`` JSON record, the card's name and
+The last four lines are each kernel's launches on each path, the
+``kernels`` JSON record (launches: the main path's), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -411,6 +431,11 @@ def main_path(dev) -> dict:
           f"{launches.get('schedule_eval', 0)}; peak device memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
     print("main path summary: " + json.dumps(row), flush=True)
+    stamp = {**bench.device_stamp(dev), "triton":
+             importlib.util.find_spec("triton") is not None}
+    print("main path distribution: " + json.dumps(
+        {"carbon_savings": bench.savings_distribution(r["carbon_savings"]),
+         "seconds": r["seconds"], "stamp": stamp}), flush=True)
     return {"launches": launches, "seconds": r["seconds"]}
 
 
@@ -957,6 +982,329 @@ def ssd_kernel_phase(dev) -> dict:
     return record
 
 
+def forecast_kernel_phase(dev) -> None:
+    """gate_quantile and schedule_delta at the forecast path's shapes,
+    bitwise (bit patterns) against their plain versions, and timed.
+
+    The rolling gate's rows: 1000 forecast instances x 3 seeds x K = 22
+    issues (every = 24) x 512 epochs, window 96, theta 0.3.  The MPC's
+    fitness: B*S = 2000 (instance, seed) rows, each with its own forecast
+    ``cum`` of 513 epochs, 24 candidates of 18 tasks."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers.common import TorchDraws
+    from repro_torch.core.solvers.rolling import forecast_cum
+    from repro_torch.forecast.rolling import n_replans, rolling_forecasts
+    from repro_torch.kernels.gate_quantile import gate_quantile_stats
+    from repro_torch.kernels.ref import (gate_quantile_stats_ref,
+                                         schedule_delta_ref)
+    from repro_torch.kernels.schedule_eval import schedule_delta
+
+    setup = bench.ForecastSetup(instances=INSTANCES)
+    _, truths, _ = bench.forecast_batch(setup, dev)
+    E = truths.shape[-1]
+    K = n_replans(E, min(bench.FC_EVERYS))
+    xi = TorchDraws(setup.seed + 1, dev).normal((setup.seeds, K, E))
+    points = rolling_forecasts(truths[:, None], xi, 1.0,
+                               min(bench.FC_EVERYS)).point
+    flush = l2_flush(dev)
+
+    inten = points.reshape(-1, E).contiguous()
+    theta = torch.full_like(inten, bench.FC_THETA)
+    mw = bench.FC_WINDOW
+    window = torch.full(inten.shape[:1], mw, dtype=torch.int32, device=dev)
+    got = gate_quantile_stats(inten, theta, window, mw)
+    want = gate_quantile_stats_ref(inten, theta, window, mw)
+    torch.cuda.synchronize()
+    check(all(same_bits(x, y) for x, y in zip(got, want)),
+          f"gate_quantile != gate_quantile_stats_ref at the rolling shape "
+          f"{tuple(points.shape)}")
+    R = inten.shape[0]
+    ms = time_cuda(lambda: gate_quantile_stats(inten, theta, window, mw), 5,
+                   flush)
+    plain_ms = time_cuda(
+        lambda: gate_quantile_stats_ref(inten, theta, window, mw), 5, flush)
+    moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
+    bound_ms = max(moved / HBM_BYTES_PER_S, 2 * int(want[2].sum())
+                   / FP32_OPS_PER_S) * 1e3
+    print(f"kernel gate_quantile rolling shape {tuple(points.shape)} (R={R}"
+          f", E={E}, window {mw}, theta {bench.FC_THETA}): bitwise equal to "
+          f"the plain version; {ms:.4f} ms (L2 flushed), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({moved / 1e6:.1f} MB"
+          " at 3.35 TB/s)", flush=True)
+
+    cum = forecast_cum(points[:, :setup.mpc_seeds, 0]) \
+        .reshape(-1, E + 1).contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    shape = (cum.shape[0], setup.sa_pop, setup.n_jobs * setup.k_tasks)
+    start = torch.randint(-5, E + 8, shape, generator=g, device=dev,
+                          dtype=torch.int32)
+    dur = torch.randint(0, 40, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    out = schedule_delta(start, dur, cum)
+    ref = schedule_delta_ref(start, dur, cum)
+    torch.cuda.synchronize()
+    check(same_bits(out, ref), f"schedule_delta != schedule_delta_ref at "
+          f"the MPC shape {shape}, H={E}")
+    ms = time_cuda(lambda: schedule_delta(start, dur, cum), KERNEL_REPS,
+                   flush)
+    plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, cum),
+                         KERNEL_REPS, flush)
+    moved = start.numel() * 12 + cum.numel() * 4
+    print(f"kernel schedule_delta MPC shape {shape} (one forecast cum of "
+          f"{E + 1} per (instance, seed)): bitwise equal to the plain "
+          f"version; {ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, "
+          f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"({moved / 1e6:.2f} MB at 3.35 TB/s)", flush=True)
+
+
+def forecast_path(dev) -> dict:
+    """bench.run_forecast at 1000 instances; launch counts read around it;
+    the scale-0 masks, the MPC invariants and the CPU checked."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers.common import TorchDraws
+    from repro_torch.core.solvers.online_torch import simulate_online
+    from repro_torch.core.solvers.rolling import (SeedShared, forecast_cum,
+                                                  replan_step)
+    from repro_torch.forecast.models import issue
+    from repro_torch.forecast.rolling import (day_ahead_dirty_mask,
+                                              rolling_dirty_mask)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    setup = bench.ForecastSetup(instances=INSTANCES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = bench.run_forecast(setup, dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = out["record"]
+
+    n_scales, n_everys = len(bench.FC_SCALES), len(bench.FC_EVERYS)
+    want_gate = 1 + n_scales * (1 + n_everys)
+    check(launches.get("gate_quantile", 0) == want_gate,
+          f"gate_quantile launched {launches.get('gate_quantile', 0)} times "
+          f"on the forecast path, expected {want_gate} (the perfect gate, "
+          "then per scale the day-ahead gate and one per replan interval)")
+    off = max(setup.sa_iters, 60)
+    sa_evals = 1 + setup.sa_iters + setup.sa_iters // 25
+    want_eval = (1 + off + off // 25) + n_scales * sa_evals * sum(
+        bench.mpc_config(setup, e).n_replans for e in bench.FC_EVERYS)
+    check(launches.get("schedule_eval", 0) == want_eval,
+          f"schedule_eval launched {launches.get('schedule_eval', 0)} times "
+          f"on the forecast path, expected {want_eval} (the offline "
+          "bound's phase 2, then every replan's SA)")
+    check(not any(rec["violations"].values()),
+          f"validator masses {rec['violations']}, expected all 0")
+
+    batch, perfect = out["batch"], out["perfect_dirty"]
+    for name, m in out["masks0"].items():
+        check(torch.equal(m, perfect[:, None].expand(m.shape)),
+              f"at scale 0 the {name} mask != dirty_mask on the truth")
+    mask = batch.task_mask[:, None]
+    n_plans = 0
+    for (scale, every), r in out["mpc"].items():
+        ps, pa = r.plans_start, r.plans_assign
+        for k in range(ps.shape[-2] - 1):
+            frozen = mask & (ps[..., k, :] < (k + 1) * every)
+            for x in (ps, pa):
+                check(torch.equal(torch.where(frozen, x[..., k + 1, :], 0),
+                                  torch.where(frozen, x[..., k, :], 0)),
+                      f"MPC (scale {scale}, every {every}): a frozen task "
+                      f"moved at replan {k + 1}")
+            n_plans += 1
+        check(torch.equal(ps[..., -1, :], r.start)
+              and torch.equal(pa[..., -1, :], r.assign),
+              "MPC: the final plan is not the last replan's")
+        check(bool((r.realized.makespan <= r.deadline).all()),
+              f"MPC (scale {scale}, every {every}): makespan past deadline")
+        if scale == 0.0:
+            check(bool((r.realized.carbon
+                        <= r.baseline.carbon * (1 + 1e-6)).all()),
+                  f"MPC (every {every}) at scale 0 ends above its baseline")
+
+    k = ORACLE_INSTANCES // 2
+    truths, xi = out["truths"][:k, None].cpu(), out["xi"].cpu()
+    cpu = {"day_ahead": day_ahead_dirty_mask(
+        truths, bench.FC_THETA, bench.FC_WINDOW, xi, 0.0, bench.FC_WINDOW)}
+    for every in bench.FC_EVERYS:
+        cpu[every] = rolling_dirty_mask(truths, bench.FC_THETA,
+                                        bench.FC_WINDOW, xi, 0.0, every,
+                                        bench.FC_WINDOW)
+    for name, m in cpu.items():
+        check(torch.equal(out["masks0"][name][:k].cpu(), m),
+              f"the card's scale-0 {name} mask != the CPU's on {k} "
+              "instances")
+
+    print(f"forecast path: run_forecast {INSTANCES} instances x "
+          f"{rec['seeds']} seeds (MPC {rec['mpc_seeds']}), horizon "
+          f"{rec['horizon']}, {rec['tasks_per_instance']} tasks, scales "
+          f"{list(bench.FC_SCALES)} x every {list(bench.FC_EVERYS)}: "
+          f"{rec['seconds']:.3f} s of stages (whole call {wall:.3f} s); "
+          "stages " + json.dumps({s: round(v, 3) for s, v in
+                                  rec["stage_seconds"].items()})
+          + f"; launches {json.dumps(launches)}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"forecast path: every schedule complete and validator-clean "
+          f"({json.dumps(rec['violations'])}); at scale 0 the day-ahead and "
+          "rolling masks equal dirty_mask on the truth for every `every`, "
+          f"bitwise, and the card's equal the CPU's on {k} instances; the "
+          f"MPC kept every frozen prefix over {n_plans} replan pairs x "
+          f"{INSTANCES} x {rec['mpc_seeds']}, met every deadline, and at "
+          "scale 0 never ended above its baseline", flush=True)
+    print(f"forecast summary: greedy carbon {rec['greedy_carbon_mean']:.3f}"
+          f" g; perfect gate {rec['perfect_day_ahead_gate']['savings_vs_greedy_pct']:.3f}"
+          f"%, offline bound {rec['offline_bound']['savings_vs_greedy_pct']:.3f}"
+          f"%; rolling_vs_day_ahead_ok {rec['rolling_vs_day_ahead_ok']}",
+          flush=True)
+    for c in rec["cells"]:
+        print("forecast summary: " + json.dumps(
+            {"scale": c["scale"], "every": c["every"],
+             "day_ahead_pct": round(c["day_ahead"]["savings_vs_greedy_pct"], 4),
+             "rolling_pct": round(c["rolling"]["savings_vs_greedy_pct"], 4),
+             "mpc_pct": round(c["mpc"]["savings_vs_greedy_pct"], 4),
+             "rolling_ge_day_ahead": c["rolling_ge_day_ahead"]}), flush=True)
+
+    # Where the time goes, in windows short enough to trace: one scale's
+    # gates and the first PROFILE_EPOCHS epochs of its dispatch, and one
+    # MPC replan (boundary 48 of every = 48, at scale 1).
+    truths, cums = out["truths"], out["cums"]
+    budgets = torch.full(truths.shape[:1], 1 << 20, dtype=torch.int32,
+                         device=dev)
+
+    def gates_and_dispatch():
+        t = truths[:, None]
+        d = [day_ahead_dirty_mask(t, bench.FC_THETA, bench.FC_WINDOW,
+                                  out["xi"], 1.0, bench.FC_WINDOW)]
+        d += [rolling_dirty_mask(t, bench.FC_THETA, bench.FC_WINDOW,
+                                 out["xi"], 1.0, e, bench.FC_WINDOW)
+              for e in bench.FC_EVERYS]
+        simulate_online(batch, torch.cat(d, 1), budgets, PROFILE_EPOCHS)
+    profile_busy(f"one scale's gates and {PROFILE_EPOCHS} epochs of its "
+                 "dispatch", gates_and_dispatch)
+    every, S = 48, setup.mpc_seeds
+    cfg = bench.mpc_config(setup, every)
+    r = out["mpc"][(1.0, every)]
+    fc = issue(truths[:, None], every, out["xi"][:S, 1], scale=1.0)
+    cum_k = forecast_cum(fc.point)
+    profile_busy(f"one MPC replan ({INSTANCES} x {S} seeds x pop "
+                 f"{cfg.sa.pop}, {cfg.sa.iters} iterations)",
+                 lambda: replan_step(
+                     batch, r.plans_start[..., 0, :],
+                     r.plans_assign[..., 0, :], every, cum_k,
+                     SeedShared(TorchDraws(0, dev), batch.lead, (S,)),
+                     r.deadline[:, 0], cfg=cfg))
+    return {"launches": launches, "seconds": rec["seconds"]}
+
+
+# tests/test_structure_golden.py's comparison of the TINY grid's rows.
+GOLDEN_EXACT = ("family", "width", "depth", "n_jobs", "n_machines", "fleet",
+                "tasks_per_job", "greedy_makespan")
+GOLDEN_SKIP = ("online_best_policy",)
+STRUCTURE_PER_CELL = 16         # 60 cells x 16 = 960 instances
+PROFILE_EPOCHS = 128            # dispatch epochs traced for a busy share
+
+
+def golden_mismatches(got: dict, want: dict) -> list:
+    """Fields of a TINY-grid row that differ from the golden: exact ones
+    unequal, other numbers outside rtol 1e-4 (atol 2e-3)."""
+    import numpy as np
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    bad = []
+    for k, w in want.items():
+        g = got[k]
+        if k in GOLDEN_SKIP:
+            continue
+        if k not in GOLDEN_EXACT and isinstance(w, (list, int, float)):
+            ok = np.allclose(np.asarray(g, float), np.asarray(w, float),
+                             rtol=1e-4, atol=2e-3)
+        else:
+            ok = g == w
+        if not ok:
+            bad.append(k)
+    return bad
+
+
+def structure_path(dev) -> dict:
+    """The structure sweep's FULL grid at 16 instances per cell (960);
+    launch counts read around it; then the dispatch-only TINY grid on the
+    card against tests/golden/structure_tiny.json."""
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers import online_torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.scenarios import build_batch, sweep_structure
+
+    spec = bench.structure_spec(instances_per_cell=STRUCTURE_PER_CELL)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    r = bench.run_structure(spec, device=dev)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    meta, rows = r["meta"], r["rows"]
+    n = len(spec.cells) * STRUCTURE_PER_CELL
+    check(meta["instances"] == n and len(rows) == len(spec.cells) == 60,
+          f"structure: {meta['instances']} instances in {len(rows)} cells, "
+          f"expected {n} in 60")
+    check(launches.get("gate_quantile", 0) == 1,
+          f"gate_quantile launched {launches.get('gate_quantile', 0)} times "
+          "in the structure sweep, expected once")
+    want = 1 + spec.sa.iters + spec.sa.iters // spec.sa.migrate_every
+    check(launches.get("schedule_eval", 0) == want,
+          f"schedule_eval launched {launches.get('schedule_eval', 0)} times "
+          f"in the structure sweep, expected {want} (the bound's phase 2)")
+    off = np.array([row["offline_bound_savings_pct"] for row in rows])
+    check(bool(np.all(np.isfinite(off)) and np.all(off >= 0)),
+          "structure: offline-bound savings non-finite or negative")
+    print(f"structure path: FULL grid, {len(rows)} cells x "
+          f"{STRUCTURE_PER_CELL} = {meta['instances']} instances, pad "
+          f"T={meta['pad_tasks']} M={meta['pad_machines']}, horizon "
+          f"{meta['horizon']}, {meta['policies']} policies, SA {spec.sa}: "
+          f"{r['seconds']:.3f} s wall; stages " + json.dumps(
+              {s: round(v, 3) for s, v in meta["seconds"].items()})
+          + f"; launches {json.dumps(launches)}; greedy and gated runs "
+          f"complete and validator-clean; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    for key, series in r["trends"].items():
+        print(f"structure summary: {key} {json.dumps(series)}", flush=True)
+
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "structure_tiny.json")) as f:
+        golden = json.load(f)["structure_tiny"]
+    t0 = time.perf_counter()
+    tiny, tmeta = sweep_structure(bench.structure_spec(tiny=True),
+                                  offline=False, device=dev)
+    check((tmeta["pad_tasks"], tmeta["pad_machines"])
+          == (golden["pad_tasks"], golden["pad_machines"])
+          and len(tiny) == len(golden["cells"]),
+          "structure TINY: shape or cell count differs from the golden")
+    for got, want_row in zip(tiny, golden["cells"]):
+        bad = golden_mismatches(got, want_row)
+        check(not bad, f"structure TINY cell {want_row['family']}-m"
+              f"{want_row['n_machines']}-{want_row['fleet']}: {bad} differ "
+              "from tests/golden/structure_tiny.json")
+    print(f"structure path: the dispatch-only TINY grid ({len(tiny)} cells) "
+          "on the card matches tests/golden/structure_tiny.json (exact "
+          "fields equal, the rest within rtol 1e-4; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    sb = build_batch(spec, dev)
+    dirty = online_torch.dirty_mask(sb.intensity, spec.thetas[0],
+                                    spec.windows[0], spec.windows[0])
+    dirty = dirty[:, None].expand(-1, meta["policies"], -1)
+    profile_busy(f"{PROFILE_EPOCHS} epochs of the structure dispatch "
+                 f"({meta['instances']} x {meta['policies']} rows)",
+                 lambda: online_torch.simulate_online(
+                     sb.batch, dirty, 1 << 20, PROFILE_EPOCHS))
+    return {"launches": launches, "seconds": r["seconds"]}
+
+
 def serve_phase(dev) -> dict:
     """hymba-1.5b at full width through ServeEngine; launch counts read
     around the run."""
@@ -1138,7 +1486,17 @@ def main() -> int:
     kernels[2]["launches"] = serve["launches"].get("flash_attention", 0)
     kernels[3]["launches"] = serve["launches"].get("ssd_scan", 0)
     serve_reference_phase(dev)
+    forecast_kernel_phase(dev)
+    forecast = forecast_path(dev)
+    structure = structure_path(dev)
 
+    paths = {"main": main, "online": online, "serve": serve,
+             "forecast": forecast, "structure": structure}
+    print("launches by path: " + json.dumps(
+        {name: {k: r["launches"].get(k, 0)
+                for k in ("schedule_eval", "gate_quantile",
+                          "flash_attention", "ssd_scan")}
+         for name, r in paths.items()}), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

@@ -6,11 +6,16 @@ of paper instances with the bi-level protocol (phase 1 optimal makespan,
 phase 2 carbon/energy under ``makespan <= S x OPT``); the ``online`` cell
 (``benchmarks/online_vs_offline.py``) sweeps the online carbon-gated
 dispatcher over a gate-policy grid and sets it beside the S=1.5 bound.
-The same ``BenchSetup`` seed gives the same instances and carbon windows
-as the reference's harness.
+The ``forecast`` cell (``benchmarks/forecast_robustness.py``) sets the
+day-ahead gate, the rolling re-quantile gate and the MPC replanner under
+forecast error beside the perfect gate and the offline bound; the
+``structure`` cell (``benchmarks/structure_sweep.py``) sweeps DAG family x
+size x server count x fleet.  The same seeds give the same instances and
+carbon windows as the reference's harness.
 
     python -m repro_torch.bench --only fig5 --instances 1000 [--device cuda]
     python -m repro_torch.bench --only online --instances 1000
+    python -m repro_torch.bench --only forecast,structure
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -32,11 +37,19 @@ import torch
 from repro_torch.core.carbon import synthesize
 from repro_torch.core.instance import (PackedInstance, generate_instance,
                                        pack, stack_packed)
-from repro_torch.core.objectives import evaluate
+from repro_torch.core.objectives import evaluate, makespan
 from repro_torch.core.solvers import SAConfig, TorchDraws, solve_bilevel_batch
-from repro_torch.core.solvers.online_torch import policy_grid, sweep_policies
+from repro_torch.core.solvers.online_torch import (dirty_mask, policy_grid,
+                                                   simulate_online,
+                                                   sweep_policies)
+from repro_torch.core.solvers.rolling import MPCConfig, solve_mpc_batch
 from repro_torch.core.validate import total_violations
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import (DEFAULT_DEVICE, Stages, resolve_device,
+                                synchronize)
+from repro_torch.forecast import (day_ahead_dirty_mask, n_replans,
+                                  rolling_dirty_mask)
+from repro_torch.scenarios import (SweepSpec, structure_cells,
+                                   sweep_structure, trend_summary)
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          ".."))
@@ -84,11 +97,6 @@ def device_stamp(device: str | torch.device = DEFAULT_DEVICE) -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda or "none"}
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def paper_batch(setup: BenchSetup, device: str | torch.device = DEFAULT_DEVICE
                 ) -> tuple[PackedInstance, torch.Tensor]:
     """The setup's instances and carbon windows: ``[B, ...]`` on ``device``.
@@ -125,11 +133,11 @@ def run_batch(setup: BenchSetup,
     draws = TorchDraws(setup.seed, dev)
     cfg = SA_FAST
 
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     res = solve_bilevel_batch(batch, cum, draws, objective=setup.objective,
                               stretch=setup.stretch, cfg1=cfg, cfg2=cfg)
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
 
     def host(x):
@@ -165,6 +173,20 @@ def summarize(r: dict) -> dict:
         "mean_utilization_pct": 100 * float(r["utilization"].mean()),
         "seconds": round(r["seconds"], 1),
     }
+
+
+SAVINGS_QUANTILES = (10, 25, 50, 75, 90)
+
+
+def savings_distribution(savings) -> dict:
+    """Mean, spread and quantiles of per-instance savings, in %: how two
+    runs on different random streams are compared."""
+    s = 100.0 * np.asarray(savings, np.float64)
+    return {"instances": int(s.size), "mean_pct": float(s.mean()),
+            "std_pct": float(s.std()), "min_pct": float(s.min()),
+            "max_pct": float(s.max()),
+            "quantiles_pct": {f"p{q}": float(np.percentile(s, q))
+                              for q in SAVINGS_QUANTILES}}
 
 
 def write_csv(name: str, rows: list[dict], stamp: dict) -> str:
@@ -307,11 +329,11 @@ def run_online(setup: BenchSetup,
     """
     dev = resolve_device(device)
     packs, batch, inten, cum = online_batch(setup, dev)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     res = sweep_policies(batch, inten, ONLINE_THETAS, ONLINE_WINDOWS,
                          ONLINE_STRETCHES, device=dev)
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
 
     def host(x):
@@ -380,17 +402,334 @@ def online_vs_offline(instances, device):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The forecast-robustness cell (benchmarks/forecast_robustness.py): how much
+# of the offline bound survives an imperfect forecast.
+# ---------------------------------------------------------------------------
+
+FC_SCALES = (0.0, 0.5, 1.0)   # forecast error at day-ahead leads, trace-stds
+FC_EVERYS = (24, 48, 96)      # replan interval (epochs; 96 = daily)
+# theta/window: the best cell of the reference's online sweep.
+FC_THETA, FC_WINDOW, FC_STRETCH = 0.3, 96, 1.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecastSetup:
+    """The reference harness's grid and budgets; ``instances`` is the
+    paper's batch size (the reference harness defaults to 8)."""
+
+    instances: int = 1000
+    seeds: int = 3              # forecast error seeds of the gates
+    horizon: int = 512
+    n_jobs: int = 6
+    k_tasks: int = 3
+    mpc_seeds: int = 2          # forecast error seeds of the MPC
+    sa_pop: int = 24            # SA per replan
+    sa_iters: int = 24
+    seed: int = 2024
+
+
+def forecast_batch(setup: ForecastSetup,
+                   device: str | torch.device = DEFAULT_DEVICE
+                   ) -> tuple[PackedInstance, torch.Tensor, torch.Tensor]:
+    """The cell's instances ``[B, ...]``, true intensity ``[B, E]`` and
+    cumulative traces ``[B, E+1]`` on ``device``, from the same numpy
+    stream as the reference's ``forecast_robustness.run``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(setup.seed)
+    year = synthesize("AU-SA", days=366, seed=2024)
+    pad = setup.n_jobs * setup.k_tasks
+    packs, truths, cums = [], [], []
+    for _ in range(setup.instances):
+        inst = generate_instance(rng, n_jobs=setup.n_jobs,
+                                 k_tasks=setup.k_tasks, n_machines=5)
+        packs.append(pack(inst, pad_tasks=pad, device="cpu"))
+        w = year.window(int(rng.integers(0, year.n_epochs - setup.horizon)),
+                        setup.horizon)
+        truths.append(w.intensity)
+        cums.append(w.cumulative())
+    batch = PackedInstance(*(f.to(dev) for f in stack_packed(packs)))
+    return (batch, torch.as_tensor(np.stack(truths), device=dev),
+            torch.as_tensor(np.stack(cums), device=dev))
+
+
+def mpc_config(setup: ForecastSetup, every: int) -> MPCConfig:
+    """The reference harness's MPC at one replan interval: replans cover
+    the first 240 epochs."""
+    return MPCConfig(every=every,
+                     n_replans=n_replans(min(setup.horizon, 240), every),
+                     stretch=FC_STRETCH,
+                     sa=SAConfig(pop=setup.sa_pop, iters=setup.sa_iters,
+                                 sweeps=1),
+                     sa_phase1=SAConfig(pop=max(setup.sa_pop, 32),
+                                        iters=max(setup.sa_iters, 40)))
+
+
+def _require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"forecast cell: {msg}")
+
+
+def run_forecast(setup: ForecastSetup = ForecastSetup(),
+                 device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The forecast-robustness cell, on ``device``.
+
+    Realized carbon (always on the true trace) of the day-ahead gate, the
+    rolling gate and the MPC replanner at every (scale, every) of the
+    grid, beside the perfect-forecast gate and the offline bound; savings
+    against the greedy online dispatch.  One ``xi [S, Kmax, E]`` of
+    forecast draws serves the whole run: the day-ahead gate uses issue 0,
+    the rolling gate issues ``0..K-1``, the MPC replans
+    ``0..n_replans-1`` (seeds ``0..mpc_seeds-1``), as the reference's
+    shared forecast keys do.  All modes and seeds of one scale go through
+    one ``simulate_online`` call.  Every dispatched schedule must be
+    complete and every schedule validator-clean (else ``RuntimeError``).
+
+    Returns ``{"record": <the reference's fields, plus the stages' wall
+    seconds and the validator masses>, ...}`` and the run's tensors for
+    checks: the batch, ``truths``, ``cums``, ``xi``, the perfect gate's
+    mask ``perfect_dirty [B, E]``, the scale-0 masks ``masks0``
+    (``"day_ahead"`` and each ``every``, ``[B, S, E]``) and the MPC
+    results ``mpc[(scale, every)]``.
+    """
+    dev = resolve_device(device)
+    st = Stages(dev)
+    with st("setup"):
+        batch, truths, cums = forecast_batch(setup, dev)
+        B, E = truths.shape
+        S = setup.seeds
+        k_max = max(n_replans(E, every) for every in FC_EVERYS)
+        xi = TorchDraws(setup.seed + 1, dev).normal((S, k_max, E))
+    mask = batch.task_mask
+    violations: dict[str, int] = {}
+
+    def clean(name, start, assign, deadline=None, scheduled=None):
+        if scheduled is not None:
+            m = mask.reshape(mask.shape[:1] + (1,) * (scheduled.ndim - 2)
+                             + mask.shape[1:])
+            _require(bool((scheduled | ~m).all()),
+                     f"{name}: dispatch did not complete within the horizon")
+        v = int(total_violations(batch, start, assign, deadline).sum())
+        violations[name] = violations.get(name, 0) + v
+        _require(v == 0, f"{name}: validator mass {v}")
+
+    # ---- baselines: greedy, perfect-forecast gate, offline bound. --------
+    with st("greedy"):
+        greedy = simulate_online(
+            batch, torch.zeros((B, E), dtype=torch.bool, device=dev), 0, E)
+        ms0 = makespan(batch, greedy.start, greedy.assign)
+        budgets = (torch.tensor(FC_STRETCH, device=dev)
+                   * ms0.to(torch.float32)).to(torch.int32)
+    clean("greedy", greedy.start, greedy.assign, scheduled=greedy.scheduled)
+    greedy_carbon = evaluate(batch, greedy.start, greedy.assign,
+                             cums).carbon.cpu().numpy()            # [B]
+    with st("perfect_gate"):
+        perfect_dirty = dirty_mask(truths, FC_THETA, FC_WINDOW, FC_WINDOW)
+        perfect = simulate_online(batch, perfect_dirty, budgets, E)
+    clean("perfect", perfect.start, perfect.assign,
+          scheduled=perfect.scheduled)
+    perfect_carbon = evaluate(batch, perfect.start, perfect.assign,
+                              cums).carbon.cpu().numpy()           # [B]
+    sa_off = SAConfig(pop=max(setup.sa_pop, 48),
+                      iters=max(setup.sa_iters, 60), sweeps=2)
+    with st("offline_bound"):
+        bires = solve_bilevel_batch(batch, cums, TorchDraws(setup.seed, dev),
+                                    objective="carbon", stretch=FC_STRETCH,
+                                    cfg1=sa_off, cfg2=sa_off)
+    clean("offline", bires.optimized.start, bires.optimized.assign,
+          bires.deadline)
+    offline_carbon = bires.optimized.carbon.cpu().numpy()         # [B]
+
+    def savings(carbon):        # vs the greedy online dispatch, in %
+        return 100.0 * float(np.mean(1.0 - carbon / greedy_carbon))
+
+    mpc_xi = xi[:max(1, setup.mpc_seeds)]
+    truth_s = truths[:, None, :]                                   # [B,1,E]
+    cells, masks0, mpcs, all_ok = [], {}, {}, True
+    for scale in FC_SCALES:
+        with st("gates"):
+            dirty = [day_ahead_dirty_mask(truth_s, FC_THETA, FC_WINDOW, xi,
+                                          scale, FC_WINDOW)]
+            dirty += [rolling_dirty_mask(truth_s, FC_THETA, FC_WINDOW, xi,
+                                         scale, every=every,
+                                         max_window=FC_WINDOW)
+                      for every in FC_EVERYS]                  # [B, S, E]
+        if scale == 0.0:
+            masks0 = {"day_ahead": dirty[0],
+                      **{every: d for every, d in zip(FC_EVERYS, dirty[1:])}}
+        with st("dispatch"):
+            sched = simulate_online(batch, torch.cat(dirty, 1), budgets, E)
+        clean("gated", sched.start, sched.assign, scheduled=sched.scheduled)
+        carbon = evaluate(batch, sched.start, sched.assign,
+                          cums).carbon.cpu().numpy()        # [B, S*(1+3)]
+        da_carbon = carbon[:, :S]
+        for i, every in enumerate(FC_EVERYS):
+            ro_carbon = carbon[:, S * (i + 1):S * (i + 2)]
+            with st("mpc"):
+                # A fresh stream per cell: every cell searches from the
+                # same draws, as the reference's shared mpc_keys do.
+                mpc = solve_mpc_batch(batch, truths, cums,
+                                      TorchDraws(setup.seed + 2, dev), mpc_xi,
+                                      scale, objective="carbon",
+                                      cfg=mpc_config(setup, every),
+                                      device=dev)
+            clean("mpc", mpc.start, mpc.assign, mpc.deadline)
+            mpcs[(scale, every)] = mpc
+            mpc_carbon = mpc.realized.carbon.cpu().numpy()         # [B, S']
+
+            da_sav = savings(da_carbon.mean(1))
+            ro_sav = savings(ro_carbon.mean(1))
+            ok = ro_sav >= da_sav - 1e-6
+            all_ok &= ok
+            cells.append({
+                "scale": scale,
+                "every": every,
+                "day_ahead": {"carbon_mean": float(da_carbon.mean()),
+                              "savings_vs_greedy_pct": da_sav},
+                "rolling": {"carbon_mean": float(ro_carbon.mean()),
+                            "savings_vs_greedy_pct": ro_sav},
+                "mpc": {"carbon_mean": float(mpc_carbon.mean()),
+                        "savings_vs_greedy_pct": savings(mpc_carbon.mean(1))},
+                "rolling_ge_day_ahead": ok,
+            })
+
+    record = {
+        "bench": "forecast_robustness",
+        "grid": {"scales": list(FC_SCALES), "replan_every": list(FC_EVERYS)},
+        "theta": FC_THETA, "window": FC_WINDOW, "stretch": FC_STRETCH,
+        "instances": setup.instances, "seeds": S,
+        "mpc_seeds": int(mpc_xi.shape[0]),
+        "horizon": setup.horizon,
+        "tasks_per_instance": setup.n_jobs * setup.k_tasks,
+        "greedy_carbon_mean": float(greedy_carbon.mean()),
+        "perfect_day_ahead_gate": {
+            "carbon_mean": float(perfect_carbon.mean()),
+            "savings_vs_greedy_pct": savings(perfect_carbon)},
+        "offline_bound": {
+            "carbon_mean": float(offline_carbon.mean()),
+            "savings_vs_greedy_pct": savings(offline_carbon)},
+        "cells": cells,
+        "rolling_vs_day_ahead_ok": bool(all_ok),
+        "seconds": sum(st.seconds.values()),
+        "stage_seconds": st.seconds,
+        "violations": violations,
+    }
+    return {"record": record, "batch": batch, "truths": truths, "cums": cums,
+            "xi": xi, "perfect_dirty": perfect_dirty, "masks0": masks0,
+            "mpc": mpcs}
+
+
+def forecast_robustness(instances, device):
+    """One row per (scale, every): day-ahead, rolling and MPC savings
+    beside the perfect gate and the offline bound."""
+    rec = run_forecast(ForecastSetup(instances=instances), device)["record"]
+    return [{"bench": "forecast_robustness", "scale": c["scale"],
+             "every": c["every"],
+             "day_ahead_savings_pct":
+                 c["day_ahead"]["savings_vs_greedy_pct"],
+             "rolling_savings_pct": c["rolling"]["savings_vs_greedy_pct"],
+             "mpc_savings_pct": c["mpc"]["savings_vs_greedy_pct"],
+             "rolling_ge_day_ahead": c["rolling_ge_day_ahead"],
+             "perfect_gate_savings_pct":
+                 rec["perfect_day_ahead_gate"]["savings_vs_greedy_pct"],
+             "offline_bound_savings_pct":
+                 rec["offline_bound"]["savings_vs_greedy_pct"],
+             "rolling_vs_day_ahead_ok": rec["rolling_vs_day_ahead_ok"],
+             "instances": rec["instances"], "seconds": rec["seconds"]}
+            for c in rec["cells"]]
+
+
+# ---------------------------------------------------------------------------
+# The structure cell (benchmarks/structure_sweep.py): savings vs job
+# structure and server count.
+# ---------------------------------------------------------------------------
+
+STRUCTURE_FAMILIES = ("chain", "fanout", "diamond", "layered", "tpch")
+
+# Copies of the reference harness's grids.  Sizes are per-family (width,
+# depth) pairs with matched tasks per job.  Full: 5 families x 2 sizes (6
+# and 10 tasks/job) x 3 server counts x 2 fleets = 60 cells.
+STRUCTURE_FULL = dict(sizes={"chain": ((1, 6), (1, 10)),
+                             "fanout": ((2, 2), (4, 2)),
+                             "diamond": ((1, 2), (3, 2)),
+                             "layered": ((3, 3), (4, 4)),
+                             "tpch": ((3, 1), (4, 3))},
+                      machine_counts=(2, 5, 8),
+                      fleets=("homog", "tiered"), n_jobs=6,
+                      instances_per_cell=4, horizon=2048,
+                      sa=SAConfig(pop=24, iters=40, sweeps=1))
+
+# Tiny (the grid tests/golden/structure_tiny.json locks): 5 x 1 size
+# (4 tasks/job) x 2 x 2 = 20 cells, 2 instances each.
+STRUCTURE_TINY = dict(sizes={"chain": ((1, 4),),
+                             "fanout": ((2, 1),),
+                             "diamond": ((2, 1),),
+                             "layered": ((3, 2),),
+                             "tpch": ((2, 1),)},
+                      machine_counts=(2, 4),
+                      fleets=("homog", "tiered"), n_jobs=4,
+                      instances_per_cell=2, horizon=768,
+                      sa=SAConfig(pop=16, iters=24, sweeps=1))
+
+
+def structure_spec(tiny: bool = False,
+                   instances_per_cell: int | None = None) -> SweepSpec:
+    """The reference harness's ``make_spec``."""
+    knobs = dict(STRUCTURE_TINY if tiny else STRUCTURE_FULL)
+    sa = knobs.pop("sa")
+    n_jobs = knobs.pop("n_jobs")
+    ipc = knobs.pop("instances_per_cell")
+    horizon = knobs.pop("horizon")
+    cells = structure_cells(families=STRUCTURE_FAMILIES, n_jobs=n_jobs,
+                            **knobs)
+    return SweepSpec(cells=cells, instances_per_cell=instances_per_cell or ipc,
+                     horizon=horizon, sa=sa)
+
+
+def run_structure(spec: SweepSpec,
+                  device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The sweep on ``device``: its rows, meta (with each stage's wall
+    seconds), trend summary and synchronised wall seconds."""
+    dev = resolve_device(device)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    rows, meta = sweep_structure(spec, device=dev)
+    synchronize(dev)
+    return {"rows": rows, "meta": meta, "trends": trend_summary(rows),
+            "seconds": time.perf_counter() - t0}
+
+
+def structure_sweep(instances, device):
+    """The full grid at ``instances`` per cell: one row per cell (scalar
+    fields), savings by policy and the offline bound."""
+    r = run_structure(structure_spec(instances_per_cell=instances),
+                      device=device)
+    return [{"bench": "structure_sweep",
+             **{k: v for k, v in row.items()
+                if not isinstance(v, (list, dict))},
+             "instances_per_cell": r["meta"]["instances_per_cell"],
+             "seconds": r["seconds"]} for row in r["rows"]]
+
+
 CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "fig6": (fig6, "fig6_regions"),
          "fig7": (fig7, "fig7_carbon_vs_energy"),
          "table1a": (table1a, "table1a_servers"),
          "table1b": (table1b, "table1b_tasks"),
-         "online": (online_vs_offline, "online_vs_offline")}
+         "online": (online_vs_offline, "online_vs_offline"),
+         "forecast": (forecast_robustness, "forecast_robustness"),
+         "structure": (structure_sweep, "structure_sweep")}
+
+# Instances per cell when --instances is not given: the paper's batch for
+# the forecast cell, 16 per grid cell for the structure sweep (960).
+DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16}
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--instances", type=int, default=16)
+    ap.add_argument("--instances", type=int, default=None,
+                    help="instances per cell (structure: per grid cell); "
+                    "default 16, forecast 1000")
     ap.add_argument("--only", default=None,
                     help="comma-separated subset, e.g. fig5,table1a")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
@@ -403,13 +742,14 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     for name in names:
         fn, csv_name = CELLS[name]
-        rows = fn(args.instances, args.device)
+        rows = fn(args.instances or DEFAULT_INSTANCES.get(name, 16),
+                  args.device)
         for row in rows:
             print(",".join(f"{k}={v}" for k, v in {**row, **stamp}.items()),
                   flush=True)
         write_csv(csv_name, rows, stamp)
-    print(f"# total {time.perf_counter() - t0:.0f}s over {len(names)} cells, "
-          f"{args.instances} instances each", flush=True)
+    print(f"# total {time.perf_counter() - t0:.0f}s over {len(names)} cells",
+          flush=True)
     return 0
 
 

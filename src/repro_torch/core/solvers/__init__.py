@@ -12,6 +12,8 @@ from repro_torch.core.solvers.online_torch import (
     dispatch_epoch, dispatch_epoch_shared, downstream_critical_path,
     init_dispatch_state, init_lane_state, online_carbon_gated_torch,
     online_greedy_torch, policy_grid, simulate_online, sweep_policies)
+from repro_torch.core.solvers.rolling import (MPCConfig, MPCResult, solve_mpc,
+                                              solve_mpc_batch)
 
 __all__ = [
     "Draws", "ScheduleResult", "TorchDraws", "decode_full",
@@ -22,5 +24,6 @@ __all__ = [
     "dispatch_epoch_shared", "downstream_critical_path",
     "init_dispatch_state", "init_lane_state", "online_carbon_gated_torch",
     "online_greedy_torch", "policy_grid", "simulate_online",
-    "sweep_policies",
+    "sweep_policies", "MPCConfig", "MPCResult", "solve_mpc",
+    "solve_mpc_batch",
 ]

@@ -194,8 +194,24 @@ def dirty_mask(intensity: torch.Tensor, theta, window,
     kernel for a CUDA tensor, its plain version for a CPU tensor, with no
     switch between them.  The ``GATE_EPS`` comparison stays here.
     """
-    thr = ops.gate_threshold(intensity, theta, window, max_window)
-    return intensity > thr + GATE_EPS
+    return forecast_dirty_mask(intensity, intensity, theta, window,
+                               max_window)
+
+
+def forecast_dirty_mask(observed: torch.Tensor, forecast: torch.Tensor,
+                        theta, window, max_window: int) -> torch.Tensor:
+    """``observed[t] > quantile(forecast[t:t+window], theta)``.
+
+    The gate of the forecast-driven dispatchers
+    (:mod:`repro_torch.forecast.rolling`): the *observed* intensity is
+    compared against the threshold of the *forecast* window.
+    ``forecast`` ``[*lead, E]`` goes through one
+    :func:`repro_torch.kernels.ops.gate_threshold` call; ``observed``
+    broadcasts to it; ``theta`` and ``window`` as in :func:`dirty_mask`,
+    which is this mask with the forecast as its own observation.
+    """
+    thr = ops.gate_threshold(forecast, theta, window, max_window)
+    return observed > thr + GATE_EPS
 
 
 def _check_rule(machine_rule: str) -> None:

@@ -18,6 +18,10 @@ from repro_torch.core.solvers import (SAConfig, TorchDraws, common,
                                       solve_bilevel_batch)
 from repro_torch.core.validate import total_violations
 from repro_torch.core.solvers import online_torch
+from repro_torch.core.solvers.rolling import forecast_cum, solve_mpc_batch
+from repro_torch.forecast.rolling import (day_ahead_dirty_mask, n_replans,
+                                          rolling_dirty_mask,
+                                          rolling_forecasts)
 from repro_torch.kernels import LAUNCHES, ops, reset_launches
 from repro_torch.kernels.gate_quantile import gate_quantile_stats
 from repro_torch.kernels.ref import (gate_quantile_stats_ref,
@@ -267,6 +271,94 @@ def test_sweep_card_equals_cpu(cuda):
                 getattr(getattr(cpu["result"], part), name)), (part, name)
     np.testing.assert_array_equal(card["result"].budget.cpu().numpy(),
                                   cpu["result"].budget.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The forecast path: the kernels at the rolling gate's and the MPC's
+# shapes, and the forecast gate on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+def _forecast_points(dev, every=24, scale=1.0):
+    """The forecast cell's issues ``[B, S, K, E]``: 1000 instances x 3
+    seeds x K issues x 512 epochs (K = 22 at every = 24)."""
+    setup = bench.ForecastSetup()
+    _, truths, _ = bench.forecast_batch(setup, dev)
+    E = truths.shape[-1]
+    xi = TorchDraws(setup.seed + 1, dev).normal(
+        (setup.seeds, n_replans(E, every), E))
+    return rolling_forecasts(truths[:, None], xi, scale, every).point
+
+
+def test_gate_quantile_rolling_shape_bitwise(cuda):
+    points = _forecast_points(cuda)
+    assert points.shape == (1000, 3, 22, 512)
+    inten = points.reshape(-1, points.shape[-1]).contiguous()
+    theta = torch.full_like(inten, bench.FC_THETA)
+    window = torch.full(inten.shape[:1], bench.FC_WINDOW, dtype=torch.int32,
+                        device=cuda)
+    reset_launches()
+    got = gate_quantile_stats(inten, theta, window, bench.FC_WINDOW)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gate_quantile"] == 1
+    want = gate_quantile_stats_ref(inten, theta, window, bench.FC_WINDOW)
+    for name, x, y in zip("abn", got, want):
+        assert _same_bits(x, y), name
+
+
+def test_schedule_delta_mpc_shape_bitwise(cuda):
+    """B*S = 2000 (instance, seed) rows, each with its own forecast cum of
+    513 epochs, 24 candidates of 18 tasks."""
+    cum = forecast_cum(_forecast_points(cuda)[:, :2, 0])    # [B, S, 513]
+    cum = cum.reshape(-1, cum.shape[-1]).contiguous()
+    start, dur, _ = _case(cuda, cum.shape[0], 24, 18, 512, -5, 520)
+    reset_launches()
+    out = schedule_delta(start, dur, cum)
+    torch.cuda.synchronize()
+    assert LAUNCHES["schedule_eval"] == 1
+    assert _same_bits(out, schedule_delta_ref(start, dur, cum))
+
+
+def test_forecast_gate_scale0_card_equals_cpu(cuda):
+    """At scale 0 the day-ahead and rolling masks on the card equal the
+    CPU's and the plain dirty mask on the truth, bitwise."""
+    setup = bench.ForecastSetup(instances=8)
+    xi = TorchDraws(1, "cpu").normal((setup.seeds, 22, setup.horizon))
+    out = {}
+    for dev in ("cpu", cuda):
+        _, truths, _ = bench.forecast_batch(setup, dev)
+        t = truths[:, None]
+        masks = [day_ahead_dirty_mask(t, bench.FC_THETA, bench.FC_WINDOW,
+                                      xi.to(dev), 0.0, bench.FC_WINDOW)]
+        masks += [rolling_dirty_mask(t, bench.FC_THETA, bench.FC_WINDOW,
+                                     xi.to(dev), 0.0, every, bench.FC_WINDOW)
+                  for every in bench.FC_EVERYS]
+        perfect = online_torch.dirty_mask(truths, bench.FC_THETA,
+                                          bench.FC_WINDOW, bench.FC_WINDOW)
+        for m in masks:
+            assert torch.equal(m, perfect[:, None].expand(m.shape))
+        out[str(dev)] = [m.cpu() for m in masks]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)
+
+
+def test_solve_mpc_batch_on_card(cuda):
+    """A small MPC batch on the card: the frozen prefix holds, every plan
+    is feasible within its deadline."""
+    setup = bench.ForecastSetup(instances=6, sa_pop=8, sa_iters=6)
+    batch, truths, cums = bench.forecast_batch(setup, cuda)
+    cfg = bench.mpc_config(setup, 48)
+    xi = TorchDraws(3, cuda).normal((2, cfg.n_replans, truths.shape[-1]))
+    reset_launches()
+    res = solve_mpc_batch(batch, truths, cums, TorchDraws(4, cuda), xi, 1.0,
+                          cfg=cfg, device=cuda)
+    assert LAUNCHES["schedule_eval"] == cfg.n_replans * (1 + cfg.sa.iters)
+    assert not total_violations(batch, res.start, res.assign,
+                                res.deadline).any()
+    ps, mask = res.plans_start, batch.task_mask[:, None]
+    for k in range(cfg.n_replans - 1):
+        frozen = mask & (ps[..., k, :] < (k + 1) * cfg.every)
+        assert torch.equal(torch.where(frozen, ps[..., k + 1, :], 0),
+                           torch.where(frozen, ps[..., k, :], 0))
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from repro_torch import bench, configs
-from repro_torch.core.solvers import online_torch
+from repro_torch.core.solvers import TorchDraws, online_torch
+from repro_torch.core.solvers.rolling import solve_mpc_batch
 from repro_torch.kernels import build
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.scenarios import sweep_structure
 from repro_torch.serve import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,7 +57,13 @@ def test_guard_sees_the_whole_port():
             "online.py", "online_torch.py", "gate_quantile.py",
             "bench.py", "chip_smoke.py", "attention.py", "ssm.py",
             "engine.py", "flash_attention.py", "ssd_scan.py", "api.py",
-            "convert.py", "serve.py"} <= names
+            "convert.py", "serve.py", "exact.py", "models.py", "rolling.py",
+            "families.py", "fleets.py", "generator.py", "batching.py",
+            "sweep.py"} <= names
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "core" / "solvers" / "rolling.py",
+            port / "forecast" / "rolling.py",
+            port / "forecast" / "models.py"} <= set(PORT_FILES)
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -74,6 +82,32 @@ def test_sweep_policies_without_device_wants_the_card():
     inten = torch.full((2, 16), 100.0)
     with pytest.raises(RuntimeError, match="cuda"):
         online_torch.sweep_policies(batch, inten, [0.5], [8], [1.5])
+
+
+def test_solve_mpc_batch_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=2), "cpu")
+    truth = torch.full((2, cum.shape[-1] - 1), 100.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_mpc_batch(batch, truth, cum, TorchDraws(0, "cpu"),
+                        torch.zeros((1, 4, truth.shape[-1])), 0.5)
+
+
+def test_sweep_structure_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep_structure(bench.structure_spec(tiny=True), offline=False)
+
+
+def test_forecast_cell_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_forecast(bench.ForecastSetup(instances=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--only", "forecast", "--instances", "1"])
 
 
 def test_build_model_without_device_wants_the_card():
