@@ -77,7 +77,26 @@ non-zero exit code if it fails:
 12. structure path — the structure sweep's full grid (60 cells x 16 =
     960 instances, horizon 2048, with the offline SA bound), launch counts
     read around it, then the dispatch-only TINY grid on the card against
-    ``tests/golden/structure_tiny.json``.
+    ``tests/golden/structure_tiny.json``;
+13. stream — ``gate_quantile`` at the stream engine's two shapes (the
+    day-ahead gate ``[1, 1216]`` and the banded gate ``[51, 1216]`` over
+    the FULL poisson cell's AU-SA window, window 96, theta 0.5) bitwise
+    and timed; both TINY stream goldens on the card; the TINY grid's
+    bursty cell at load 1.2 in both fleet modes, card against CPU (event
+    logs: ints exact, each job's carbon within rtol 1e-6); then three
+    cells at the stream bench's FULL knobs (horizon 1024, 8 lanes,
+    layered 3 x 3 jobs, 3 tiered machines, load 0.9, seed 2024) —
+    poisson partitioned, bursty on the shared fleet, poisson with the
+    forecast-banded gate (every 24, scale 1) — through
+    ``bench.run_stream_cell``, launch counts read around each:
+    ``gate_quantile`` once per engine, every finished schedule
+    validator-clean (the engine's check and ``check_feasible_np``), no
+    cross-lane overlap on the shared fleet, the two day-ahead cells'
+    counts, queue delays and savings equal to the reference harness's
+    cells in ``BENCH_stream.json``, and the banded cell's event log equal
+    to the same cell's on the CPU (as the TINY cell is held); then one
+    pool tick in each fleet mode and one admission solve under
+    ``torch.profiler``.
 
 The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches: the main path's), the card's name and
@@ -358,41 +377,54 @@ def gate_kernel_phase(dev) -> dict:
                   f"{mw}, windows {window.tolist()}): bitwise equal to the "
                   "plain version on the card and on the CPU", flush=True)
             continue
-        reps = KERNEL_REPS if name == "main" else 5
-        ms = time_cuda(lambda: gate_quantile_stats(inten, theta, window, mw),
-                       reps, flush)
-        plain_ms = time_cuda(
-            lambda: gate_quantile_stats_ref(inten, theta, window, mw),
-            reps, flush)
-        qs = torch.unique(theta)
-        q = qs if qs.numel() <= 8 else torch.tensor(0.5, device=dev)
-        padded = nan_windows(inten, window, mw)
-        library_ms = time_cuda(lambda: torch.nanquantile(padded, q, dim=-1),
-                               reps, flush)
-        del padded
-        moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
-        ops = 2 * int(want[2].sum())        # a linear-time selection's
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"kernel gate_quantile {name} (R={R}, E={E}, max_window={mw}): "
-              f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
-              f"flushed), plain {plain_ms:.4f} ms, torch.nanquantile over "
-              f"NaN-padded windows (q={q.tolist()}) {library_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms ({moved / 1e6:.3f} MB at 3.35 TB/s "
-              f"= {bytes_ms:.6f} ms; {ops / 1e9:.6f} G compares at 67 T/s "
-              f"= {ops_ms:.6f} ms)", flush=True)
+        t = gate_timing(name, inten, theta, window, mw, want[2], flush,
+                        KERNEL_REPS if name == "main" else 5)
         if name == "main":
             print_device_ms("gate_quantile main", lambda: gate_quantile_stats(
                 inten, theta, window, mw), "gate_slide")
             record = {"name": "gate_quantile", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/gate_quantile.cu",
                       "replaces": "src/repro/kernels/gate_quantile.py:96",
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+                      "max_abs_err": err, **t}
     return record
+
+
+def gate_timing(name, inten, theta, window, mw, n, flush, reps) -> dict:
+    """Times of gate_quantile, its plain version and torch.nanquantile over
+    NaN-padded windows (CUDA events, L2 flushed) beside the kernel's bound:
+    the bytes it moves at 3.35 TB/s, or a linear-time selection's
+    compares (2 per valid slot, ``n`` the valid counts) at 67 T/s."""
+    import torch
+    from repro_torch.kernels.gate_quantile import gate_quantile_stats
+    from repro_torch.kernels.ref import gate_quantile_stats_ref
+
+    R, E = inten.shape
+    ms = time_cuda(lambda: gate_quantile_stats(inten, theta, window, mw),
+                   reps, flush)
+    plain_ms = time_cuda(
+        lambda: gate_quantile_stats_ref(inten, theta, window, mw),
+        reps, flush)
+    qs = torch.unique(theta)
+    q = qs if qs.numel() <= 8 else torch.tensor(0.5, device=inten.device)
+    padded = nan_windows(inten, window, mw)
+    library_ms = time_cuda(lambda: torch.nanquantile(padded, q, dim=-1),
+                           reps, flush)
+    del padded
+    moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
+    ops = 2 * int(n.sum())        # a linear-time selection's
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"kernel gate_quantile {name} (R={R}, E={E}, max_window={mw}): "
+          f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
+          f"flushed), plain {plain_ms:.4f} ms, torch.nanquantile over "
+          f"NaN-padded windows (q={q.tolist()}) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({moved / 1e6:.3f} MB at 3.35 TB/s "
+          f"= {bytes_ms:.6f} ms; {ops / 1e9:.6f} G compares at 67 T/s "
+          f"= {ops_ms:.6f} ms)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def main_path(dev) -> dict:
@@ -1305,6 +1337,314 @@ def structure_path(dev) -> dict:
     return {"launches": launches, "seconds": r["seconds"]}
 
 
+# tests/test_stream_golden.py's TINY stream (both goldens' config).
+STREAM_GOLDEN = dict(arrivals="bursty", rate=0.08, horizon=192, n_lanes=3,
+                     family="layered", width=3, depth=2, n_machines=3,
+                     fleet="tiered", mean_dur=5.0, theta=0.5, window=96,
+                     stretch=1.5, seed=2024)
+STREAM_EXACT = ("rid", "arrival", "admitted", "queue_delay", "finished",
+                "budget", "greedy_makespan", "completed", "truncated")
+STREAM_LOAD = 0.9
+STREAM_EVERY = 24               # the banded gate's forecast interval
+STREAM_CPU_TOL = 1e-6           # card vs CPU: each job's carbon, rtol
+# The FULL-knob cells: (arrival family, shared fleet, banded-gate fields).
+STREAM_CELLS = (("poisson", False, {}),
+                ("bursty", True, {}),
+                ("poisson", False, {"forecast_every": STREAM_EVERY,
+                                    "forecast_scale": 1.0}))
+
+
+# Fields of a stream row that must equal the reference harness's record.
+STREAM_BENCH_EXACT = ("n_jobs", "n_admitted", "n_rejected", "n_finished",
+                      "n_truncated", "n_unfinished", "final_lane_occupancy",
+                      "rate_jobs_per_epoch", "queue_delay_epochs")
+
+
+def stream_bench_cell(arrivals: str, shared: bool) -> dict:
+    """The reference harness's FULL cell at STREAM_LOAD from the repo's
+    ``BENCH_stream.json`` (``benchmarks/stream_serve.py``, seed 2024)."""
+    from repro_torch import bench
+    with open(os.path.join(ROOT, "BENCH_stream.json")) as f:
+        rec = json.load(f)
+    check(rec["mode"] == "full" and rec["seed"] == bench.STREAM_SEED,
+          "BENCH_stream.json is not the FULL grid at the bench's seed")
+    (cell,) = [c for c in rec["cells"] if c["arrivals"] == arrivals
+               and c["load"] == STREAM_LOAD and c["shared_fleet"] == shared]
+    return cell
+
+
+def stream_full_setup(dev) -> tuple:
+    """The FULL grid's knobs and the rate of load STREAM_LOAD, calibrated
+    against the pool's greedy capacity on the card."""
+    from repro_torch import bench
+    knobs, _, _ = bench.stream_knobs()
+    service = bench.probe_service_epochs(knobs, device=dev)
+    return knobs, STREAM_LOAD * knobs["n_lanes"] / service, service
+
+
+def stream_gate_phase(dev, knobs, rate) -> None:
+    """gate_quantile at the stream engine's two shapes, bitwise against its
+    plain version and timed: the day-ahead gate ``[1, E]`` and the banded
+    gate ``[K, E]`` (every = 24) over the FULL poisson cell's AU-SA window
+    (E = 1024 + 192 = 1216, window 96, theta 0.5); the banded rows come
+    from the engine's own noise (drawn on the CPU, whatever the device)."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers.common import TorchDraws
+    from repro_torch.forecast.rolling import n_replans, rolling_forecasts
+    from repro_torch.kernels.gate_quantile import gate_quantile_stats
+    from repro_torch.kernels.ref import gate_quantile_stats_ref
+    from repro_torch.stream.engine import stream_setup
+
+    cfg = bench.stream_config(knobs, "poisson", rate)
+    _, _, _, trace = stream_setup(cfg)
+    inten = torch.as_tensor(trace.intensity, device=dev)
+    E = inten.shape[-1]
+    K = n_replans(E, STREAM_EVERY)
+    xi = TorchDraws(cfg.seed, "cpu").normal((K, E)).to(dev)
+    points = rolling_forecasts(inten, xi, 1.0, STREAM_EVERY).point
+    flush = l2_flush(dev)
+    for name, rows in (("stream day-ahead", inten[None]),
+                       ("stream banded", points)):
+        rows = rows.contiguous()
+        theta = torch.full_like(rows, cfg.theta)
+        window = torch.full(rows.shape[:1], cfg.window, dtype=torch.int32,
+                            device=dev)
+        got = gate_quantile_stats(rows, theta, window, cfg.window)
+        want = gate_quantile_stats_ref(rows, theta, window, cfg.window)
+        torch.cuda.synchronize()
+        check(all(same_bits(x, y) for x, y in zip(got, want)),
+              f"gate_quantile != gate_quantile_stats_ref at the {name} "
+              f"shape {tuple(rows.shape)}")
+        gate_timing(name, rows, theta, window, cfg.window, want[2], flush,
+                    KERNEL_REPS)
+
+
+def stream_events_differ(got: list, want: list, tol=None) -> list:
+    """rids whose event records differ: a field set, an exact field, or
+    (``tol`` = (rtol, atol)) a float outside it; ``tol=None`` compares
+    the exact fields only."""
+    if len(got) != len(want):
+        return ["length"]
+    bad = []
+    for g, w in zip(got, want):
+        ok = set(g) == set(w)
+        for k, v in w.items():
+            if not ok:
+                break
+            if k in STREAM_EXACT:
+                ok = g[k] == v
+            elif tol is not None:
+                ok = abs(g[k] - v) <= tol[1] + tol[0] * abs(v)
+        if not ok:
+            bad.append(w["rid"])
+    return bad
+
+
+def stream_card_vs_cpu(card, cpu) -> list:
+    """rids whose records differ between a card's and the CPU's
+    :class:`StreamResult` of one config: an exact event field, the
+    schedule, or carbon, energy or a greedy baseline beyond rtol
+    STREAM_CPU_TOL."""
+    bad = stream_events_differ(card.events, cpu.events)
+    for a, b in zip(card.jobs, cpu.jobs):
+        same = ((a.start is None and b.start is None)
+                or (a.start is not None and b.start is not None
+                    and (a.start == b.start).all()
+                    and (a.assign == b.assign).all()))
+        for f in ("carbon", "energy", "greedy_carbon", "greedy_energy"):
+            x, y = getattr(a, f), getattr(b, f)
+            same &= abs(x - y) <= STREAM_CPU_TOL * abs(y)
+        if not same:
+            bad.append(b.rid)
+    return sorted(set(bad))
+
+
+def fleet_overlaps(jobs) -> int:
+    """Pairs of finished tasks that share a machine at one epoch, over all
+    jobs of a shared-fleet run (durations from each packed instance)."""
+    busy: dict[int, list] = {}
+    n = 0
+    for sj in jobs:
+        if not sj.finished:
+            continue
+        dur = sj.inst.dur.cpu().numpy()
+        for ti in range(sj.job.n_tasks):
+            m, s0 = int(sj.assign[ti]), int(sj.start[ti])
+            e0 = s0 + int(dur[ti, m])
+            n += sum(s0 < e and s < e0 for s, e in busy.get(m, ()))
+            busy.setdefault(m, []).append((s0, e0))
+    return n
+
+
+def stream_row_line(r: dict) -> str:
+    keys = ("n_jobs", "n_admitted", "n_finished", "n_rejected", "n_truncated",
+            "n_unfinished", "ticks", "seconds", "jobs_per_sec",
+            "admission_wall_s", "tick_wall_s", "queue_delay_epochs",
+            "carbon_savings_pct")
+    return json.dumps({k: r[k] for k in keys})
+
+
+def stream_path(dev, knobs, rate, service) -> dict:
+    """The streaming service: the TINY goldens on the card, the TINY grid's
+    most backlogged cell card vs CPU, then three FULL-knob cells with the
+    launch counts read around them, and one profiled tick and admission."""
+    import dataclasses
+
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.instance import Instance, pack
+    from repro_torch.core.validate import check_feasible_np
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.stream import StreamConfig, simulate_stream
+    from repro_torch.stream import engine as stream_engine
+
+    t0 = time.perf_counter()
+    for shared, name in ((False, "stream_tiny.json"),
+                         (True, "stream_contention_tiny.json")):
+        with open(os.path.join(ROOT, "tests", "golden", name)) as f:
+            golden = json.load(f)
+        res = simulate_stream(StreamConfig(**STREAM_GOLDEN,
+                                           shared_fleet=shared), device=dev)
+        check({k: res.meta[k] for k in golden["meta"]} == golden["meta"],
+              f"stream TINY ({name}): meta {res.meta} differs from the "
+              "golden")
+        bad = stream_events_differ(res.events, golden["events"],
+                                   (1e-4, 2e-3))
+        check(not bad, f"stream TINY on the card: events of rids {bad} "
+              f"differ from tests/golden/{name}")
+    print("stream path: both TINY goldens reproduced on the card (ints "
+          "exact, floats within rtol 1e-4 / atol 2e-3; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    tk, tloads, _ = bench.stream_knobs(tiny=True)
+    load = max(tloads)
+    tservice = bench.probe_service_epochs(tk, device=dev)
+    check(tservice == bench.probe_service_epochs(tk, device="cpu"),
+          "stream TINY: the card's greedy service time differs from the CPU's")
+    trate = load * tk["n_lanes"] / tservice
+    for shared in (False, True):
+        card = bench.run_stream_cell(tk, "bursty", load, trate, shared,
+                                     device=dev)
+        cpu = bench.run_stream_cell(tk, "bursty", load, trate, shared,
+                                    device="cpu")
+        bad = stream_card_vs_cpu(card["result"], cpu["result"])
+        check(not bad, f"stream TINY bursty load {load} (shared {shared}): "
+              f"card != CPU for rids {bad}")
+        print(f"stream path: TINY bursty load {load}, shared fleet {shared}:"
+              f" {len(card['result'].jobs)} jobs, the card's event log "
+              "equals the CPU's (ints exact; schedules equal; carbon, "
+              "energy and the "
+              f"greedy baselines within rtol {STREAM_CPU_TOL}); card "
+              f"{card['seconds']:.3f} s, CPU {cpu['seconds']:.3f} s",
+              flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    seconds = 0.0
+    for fam, shared, gate in STREAM_CELLS:
+        before = dict(LAUNCHES)
+        row = bench.run_stream_cell(knobs, fam, STREAM_LOAD, rate, shared,
+                                    device=dev, **gate)
+        seconds += row["seconds"]
+        got = {k: LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in set(LAUNCHES) | set(before)}
+        label = (f"FULL {fam} load {STREAM_LOAD}"
+                 + (" shared" if shared else "")
+                 + (f" banded every {gate['forecast_every']}" if gate else ""))
+        check({k: v for k, v in got.items() if v} == {"gate_quantile": 1},
+              f"stream {label}: launches {got}, expected gate_quantile "
+              "once (the engine's gate) and no other kernel")
+        res = row["result"]
+        finished = [sj for sj in res.jobs if sj.finished]
+        check(row["n_finished"] == len(finished) > 0
+              and row["n_admitted"] == (row["n_finished"]
+                                        + row["final_lane_occupancy"]),
+              f"stream {label}: counts {stream_row_line(row)}")
+        for sj in finished:     # the engine validated each eviction; again
+            probs = check_feasible_np(sj.inst, sj.start, sj.assign)
+            check(not probs, f"stream {label}: rid {sj.rid} infeasible: "
+                  f"{probs}")
+        if shared:
+            n = fleet_overlaps(res.jobs)
+            check(n == 0, f"stream {label}: {n} cross-lane machine overlaps")
+        if not gate:
+            want = stream_bench_cell(fam, shared)
+            bad = [k for k in STREAM_BENCH_EXACT if row[k] != want[k]] + [
+                q for q, v in want["carbon_savings_pct"].items()
+                if abs(row["carbon_savings_pct"][q] - v) > 2e-3]
+            check(not bad, f"stream {label}: {bad} differ from the "
+                  "reference's cell in BENCH_stream.json")
+        else:   # the banded gate's rows and thresholds, held to the CPU's
+            cpu = bench.run_stream_cell(knobs, fam, STREAM_LOAD, rate,
+                                        shared, device="cpu", **gate)
+            bad = stream_card_vs_cpu(res, cpu["result"])
+            check(not bad, f"stream {label}: card != CPU for rids {bad}")
+            cpu_s = cpu["seconds"]
+        gate_name = json.dumps(gate) if gate else "day-ahead gate"
+        print(f"stream path: {label} ({gate_name}; rate {rate:.5f} "
+              f"jobs/epoch, service {service:.3f} epochs): "
+              f"{stream_row_line(row)}; every finished schedule "
+              "validator-clean (the engine and check_feasible_np)"
+              + ("; no cross-lane machine overlap" if shared else "")
+              + (f"; event log equal to the CPU's ({cpu_s:.3f} s there; "
+                 "ints exact, schedules equal, carbon, energy and the "
+                 f"greedy baselines within rtol {STREAM_CPU_TOL})" if gate
+                 else "; counts, queue delays and savings equal to the "
+                 "reference's cell in BENCH_stream.json"),
+              flush=True)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"stream path: three FULL cells {seconds:.3f} s; launches "
+          f"{json.dumps(launches)}; peak device memory {peak / 2**30:.3f} "
+          "GiB", flush=True)
+
+    # Where the time goes: one tick of a full pool, each fleet mode, and
+    # one admission solve mid-stream.
+    cfg = bench.stream_config(knobs, "poisson", rate)
+    jobs, powers, speeds, trace = stream_engine.stream_setup(cfg)
+    pad = max(j.n_tasks for j in jobs)
+    L = knobs["n_lanes"]
+    for shared in (False, True):
+        eng = stream_engine.StreamEngine(trace, powers, speeds, L, pad,
+                                         shared_fleet=shared, device=dev)
+        for lane in range(L):
+            sj = stream_engine.StreamJob(
+                lane, dataclasses.replace(jobs[lane], arrival=0))
+            eng.pool.insert(lane, sj)
+            check(eng._admit_job(lane, sj, 0), "stream profile: admission")
+        if shared:
+            def tick():
+                out = stream_engine._pool_tick_shared(
+                    eng.pool_inst, eng.cp, eng.lstate, eng.mfree,
+                    eng.dirty[0], eng.budget, 0, eng._lane_order(),
+                    eng.machine_rule)
+                stream_engine._to_host(*out[2:])
+        else:
+            def tick():
+                out = stream_engine._pool_tick(
+                    eng.pool_inst, eng.cp, eng.lstate, eng.mfree,
+                    eng.dirty[0], eng.budget, 0, eng.machine_rule)
+                stream_engine._to_host(*out[2:])
+        tick()
+        profile_busy(f"one {'shared' if shared else 'partitioned'} pool tick"
+                     f" ({L} lanes x {pad} tasks)", tick)
+    t_adm = knobs["horizon"] // 2
+    inst = pack(Instance(jobs=(dataclasses.replace(jobs[L], arrival=t_adm),),
+                         powers_kw=powers, speeds=speeds), pad_tasks=pad,
+                device=dev)
+
+    def admission():
+        cp, budget, obj, complete = stream_engine._admission_eval(
+            inst, eng.cum, eng._stretch, t_adm, eng._idle_mfree, eng.E,
+            eng.machine_rule)
+        stream_engine._to_host(complete, budget, obj.makespan, obj.carbon)
+    admission()
+    profile_busy(f"one admission solve ({jobs[L].n_tasks} tasks, admitted "
+                 f"at epoch {t_adm})", admission)
+    return {"launches": launches, "seconds": seconds}
+
+
 def serve_phase(dev) -> dict:
     """hymba-1.5b at full width through ServeEngine; launch counts read
     around the run."""
@@ -1489,9 +1829,12 @@ def main() -> int:
     forecast_kernel_phase(dev)
     forecast = forecast_path(dev)
     structure = structure_path(dev)
+    knobs, rate, service = stream_full_setup(dev)
+    stream_gate_phase(dev, knobs, rate)
+    stream = stream_path(dev, knobs, rate, service)
 
     paths = {"main": main, "online": online, "serve": serve,
-             "forecast": forecast, "structure": structure}
+             "forecast": forecast, "structure": structure, "stream": stream}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

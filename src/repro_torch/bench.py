@@ -10,12 +10,16 @@ The ``forecast`` cell (``benchmarks/forecast_robustness.py``) sets the
 day-ahead gate, the rolling re-quantile gate and the MPC replanner under
 forecast error beside the perfect gate and the offline bound; the
 ``structure`` cell (``benchmarks/structure_sweep.py``) sweeps DAG family x
-size x server count x fleet.  The same seeds give the same instances and
-carbon windows as the reference's harness.
+size x server count x fleet; the ``stream`` cell
+(``benchmarks/stream_serve.py``) streams arriving DAG jobs through the
+lane-pool engine at calibrated loads, in both fleet modes.  The same
+seeds give the same instances and carbon windows as the reference's
+harness.
 
     python -m repro_torch.bench --only fig5 --instances 1000 [--device cuda]
     python -m repro_torch.bench --only online --instances 1000
     python -m repro_torch.bench --only forecast,structure
+    python -m repro_torch.bench --only stream        # FULL, both fleet modes
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -35,11 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.carbon import synthesize
-from repro_torch.core.instance import (PackedInstance, generate_instance,
-                                       pack, stack_packed)
+from repro_torch.core.instance import (Instance, PackedInstance,
+                                       generate_instance, pack, stack_packed)
 from repro_torch.core.objectives import evaluate, makespan
 from repro_torch.core.solvers import SAConfig, TorchDraws, solve_bilevel_batch
-from repro_torch.core.solvers.online_torch import (dirty_mask, policy_grid,
+from repro_torch.core.solvers.online_torch import (dirty_mask,
+                                                   online_greedy_torch,
+                                                   policy_grid,
                                                    simulate_online,
                                                    sweep_policies)
 from repro_torch.core.solvers.rolling import MPCConfig, solve_mpc_batch
@@ -48,8 +54,10 @@ from repro_torch.device import (DEFAULT_DEVICE, Stages, resolve_device,
                                 synchronize)
 from repro_torch.forecast import (day_ahead_dirty_mask, n_replans,
                                   rolling_dirty_mask)
-from repro_torch.scenarios import (SweepSpec, structure_cells,
+from repro_torch.scenarios import (ScenarioConfig, SweepSpec, build_fleet,
+                                   sample_job, structure_cells,
                                    sweep_structure, trend_summary)
+from repro_torch.stream import StreamConfig, simulate_stream
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          ".."))
@@ -711,6 +719,216 @@ def structure_sweep(instances, device):
              "seconds": r["seconds"]} for row in r["rows"]]
 
 
+# ---------------------------------------------------------------------------
+# The stream cell (benchmarks/stream_serve.py): the streaming dispatch
+# service under load — throughput, queue delay and savings.
+# ---------------------------------------------------------------------------
+
+STREAM_SEED = 2024      # the arrivals, jobs, fleet and window of every cell
+
+# Full grid: 3 arrival families x 4 load factors, day-scale stream.
+STREAM_FULL = dict(horizon=1024, n_lanes=8, family="layered", width=3,
+                   depth=3, n_machines=3, fleet="tiered", mean_dur=6.0,
+                   loads=(0.3, 0.6, 0.9, 1.2),
+                   families=("poisson", "bursty", "diurnal"))
+
+# Tiny grid: 2 families x 3 loads, quarter-day stream.
+STREAM_TINY = dict(horizon=256, n_lanes=4, family="layered", width=3,
+                   depth=2, n_machines=3, fleet="tiered", mean_dur=5.0,
+                   loads=(0.4, 0.8, 1.2), families=("poisson", "bursty"))
+
+
+def stream_knobs(tiny: bool = False) -> tuple[dict, tuple, tuple]:
+    """The grid's job/pool knobs, its loads and its arrival families."""
+    knobs = dict(STREAM_TINY if tiny else STREAM_FULL)
+    return knobs, knobs.pop("loads"), knobs.pop("families")
+
+
+def probe_service_epochs(knobs: dict,
+                         device: str | torch.device = DEFAULT_DEVICE
+                         ) -> float:
+    """Mean greedy makespan of 8 of the cell's jobs — the per-lane
+    service time the load factor is calibrated against (the reference
+    harness's probe, on ``device``)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(STREAM_SEED)
+    scen = ScenarioConfig(family=knobs["family"], n_jobs=1,
+                          width=knobs["width"], depth=knobs["depth"],
+                          n_machines=knobs["n_machines"],
+                          fleet=knobs["fleet"],
+                          mean_dur=knobs["mean_dur"]).validate()
+    jobs = [dataclasses.replace(sample_job(rng, scen), arrival=0)
+            for _ in range(8)]
+    powers, speeds = build_fleet(knobs["fleet"], rng, knobs["n_machines"])
+    T = max(j.n_tasks for j in jobs)
+    ms = []
+    for j in jobs:
+        inst = pack(Instance(jobs=(j,), powers_kw=powers, speeds=speeds),
+                    pad_tasks=T, device=dev)
+        g = online_greedy_torch(inst, 512, device=dev)
+        ms.append(int(makespan(inst, g.start, g.assign)))
+    return float(np.mean(ms))
+
+
+def _dist(xs: list[float]) -> dict:
+    if not xs:
+        return {"mean": 0.0, "p50": 0.0, "p90": 0.0, "max": 0.0}
+    a = np.asarray(xs, np.float64)
+    return {"mean": round(float(a.mean()), 3),
+            "p50": round(float(np.percentile(a, 50)), 3),
+            "p90": round(float(np.percentile(a, 90)), 3),
+            "max": round(float(a.max()), 3)}
+
+
+def _round_dist(d: dict) -> dict:
+    return {k: round(v, 3) if isinstance(v, float) else v
+            for k, v in d.items()}
+
+
+def stream_config(knobs: dict, family: str, rate: float,
+                  shared_fleet: bool = False, **gate) -> StreamConfig:
+    """One cell's :class:`StreamConfig`; ``gate`` sets the forecast-banded
+    gate's fields (``forecast_every``, ``forecast_scale``)."""
+    return StreamConfig(arrivals=family, rate=rate, horizon=knobs["horizon"],
+                        n_lanes=knobs["n_lanes"], family=knobs["family"],
+                        width=knobs["width"], depth=knobs["depth"],
+                        n_machines=knobs["n_machines"], fleet=knobs["fleet"],
+                        mean_dur=knobs["mean_dur"], seed=STREAM_SEED,
+                        shared_fleet=shared_fleet, **gate)
+
+
+def _warm_wall(wall: dict, name: str) -> dict:
+    """Mean and p90 seconds of a call's warm samples, and their count
+    (from ``summary()["wall"]``)."""
+    d = wall.get(f"{name}_warm", {})
+    return {"mean": d.get("mean", 0.0), "p90": d.get("p90", 0.0),
+            "count": d.get("count", 0)}
+
+
+def run_stream_cell(knobs: dict, family: str, load: float, rate: float,
+                    shared_fleet: bool = False,
+                    device: str | torch.device = DEFAULT_DEVICE,
+                    **gate) -> dict:
+    """One stream cell on ``device``: the reference harness's row, plus
+    the warm admission and tick walls.  ``seconds`` is
+    :func:`~repro_torch.stream.simulate_stream` between two
+    synchronisations; ``jobs_per_sec`` is finished jobs per second of it.
+    The result itself is under ``"result"``."""
+    dev = resolve_device(device)
+    cfg = stream_config(knobs, family, rate, shared_fleet, **gate)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    res = simulate_stream(cfg, device=dev)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    s = res.summary
+    n_finished = s["jobs_completed"]
+    finished = [sj for sj in res.jobs if sj.finished]
+    return {
+        "arrivals": family,
+        "load": load,
+        "shared_fleet": shared_fleet,
+        "rate_jobs_per_epoch": round(rate, 5),
+        "n_jobs": len(res.jobs),
+        "n_admitted": s["jobs_admitted"],
+        "n_rejected": s["jobs_rejected"],
+        "n_finished": n_finished,
+        "n_truncated": s["jobs_truncated"],
+        "n_unfinished": len(res.jobs) - n_finished,
+        "final_lane_occupancy": s["final_lane_occupancy"],
+        "ticks": s["ticks"],
+        "seconds": seconds,
+        "jobs_per_sec": n_finished / max(seconds, 1e-9),
+        "admission_wall_s": _warm_wall(s["wall"], "admission_wall_s"),
+        "tick_wall_s": _warm_wall(s["wall"], "tick_wall_s"),
+        "queue_delay_epochs": _round_dist(s["queue_delay_epochs"]),
+        "carbon_savings_pct": _round_dist(s["carbon_savings_pct"]),
+        "realized_stretch": _dist(
+            [(sj.completed - sj.admitted)
+             / max(1, sj.greedy_makespan - sj.admitted)
+             for sj in finished]),
+        "result": res,
+    }
+
+
+def fleet_deltas(rows: list[dict]) -> list[dict]:
+    """Per-(family, load) shared-minus-partitioned deltas: the contention
+    cost (queue delay up) and gate-interaction cost (savings down) of one
+    common machine set vs disjoint per-lane partitions."""
+    part = {(r["arrivals"], r["load"]): r for r in rows
+            if not r["shared_fleet"]}
+    out = []
+    for r in rows:
+        p = part.get((r["arrivals"], r["load"]))
+        if not r["shared_fleet"] or p is None:
+            continue
+        out.append({
+            "arrivals": r["arrivals"],
+            "load": r["load"],
+            "queue_delay_mean_delta": round(
+                r["queue_delay_epochs"]["mean"]
+                - p["queue_delay_epochs"]["mean"], 3),
+            "queue_delay_p90_delta": round(
+                r["queue_delay_epochs"]["p90"]
+                - p["queue_delay_epochs"]["p90"], 3),
+            "savings_mean_delta_pct": round(
+                r["carbon_savings_pct"]["mean"]
+                - p["carbon_savings_pct"]["mean"], 3),
+            "finished_delta": r["n_finished"] - p["n_finished"],
+        })
+    return out
+
+
+def run_stream(tiny: bool = False,
+               device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The stream grid on ``device``: every (family x load) cell in both
+    fleet modes (partitioned baseline first), at rates calibrated against
+    the pool's greedy capacity (``load = rate / (n_lanes / mean greedy
+    makespan)``).  One warm-up cell per fleet mode runs outside the clock.
+    Returns the reference harness's ``shared_fleet=True`` record: ``cells``
+    (rows without their results), ``fleet_deltas``, the service time, the
+    capacity and the knobs."""
+    dev = resolve_device(device)
+    knobs, loads, families = stream_knobs(tiny)
+    service = probe_service_epochs(knobs, device=dev)
+    capacity = knobs["n_lanes"] / service      # jobs/epoch the pool clears
+    for sf in (False, True):
+        run_stream_cell(knobs, families[0], loads[0], loads[0] * capacity,
+                        shared_fleet=sf, device=dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    rows = [run_stream_cell(knobs, fam, load, load * capacity,
+                            shared_fleet=sf, device=dev)
+            for sf in (False, True) for fam in families for load in loads]
+    seconds = time.perf_counter() - t0
+    for r in rows:
+        del r["result"]
+    return {"bench": "stream_serve", "mode": "tiny" if tiny else "full",
+            "shared_fleet_axis": True, "seconds": seconds,
+            "seed": STREAM_SEED, "service_epochs": round(service, 3),
+            "capacity_jobs_per_epoch": round(capacity, 5), **knobs,
+            "cells": rows, "fleet_deltas": fleet_deltas(rows)}
+
+
+def _flat(row: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in row.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}_"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def stream_serve(instances, device):
+    """The stream grid in both fleet modes: FULL, or TINY when
+    ``instances <= 16`` (the reference's ``run_harness``).  One row per
+    cell, nested distributions flattened."""
+    rec = run_stream(tiny=instances <= 16, device=device)
+    return [{"bench": "stream_serve", "mode": rec["mode"], **_flat(r)}
+            for r in rec["cells"]]
+
+
 CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "fig6": (fig6, "fig6_regions"),
          "fig7": (fig7, "fig7_carbon_vs_energy"),
@@ -718,18 +936,21 @@ CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "table1b": (table1b, "table1b_tasks"),
          "online": (online_vs_offline, "online_vs_offline"),
          "forecast": (forecast_robustness, "forecast_robustness"),
-         "structure": (structure_sweep, "structure_sweep")}
+         "structure": (structure_sweep, "structure_sweep"),
+         "stream": (stream_serve, "stream_serve")}
 
 # Instances per cell when --instances is not given: the paper's batch for
-# the forecast cell, 16 per grid cell for the structure sweep (960).
-DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16}
+# the forecast cell, 16 per grid cell for the structure sweep (960); the
+# stream cell runs its FULL grid above 16, TINY at 16 or below.
+DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16, "stream": 1000}
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--instances", type=int, default=None,
-                    help="instances per cell (structure: per grid cell); "
-                    "default 16, forecast 1000")
+                    help="instances per cell (structure: per grid cell; "
+                    "stream: <= 16 runs the TINY grid); default 16, "
+                    "forecast 1000, stream FULL")
     ap.add_argument("--only", default=None,
                     help="comma-separated subset, e.g. fig5,table1a")
     ap.add_argument("--device", default=DEFAULT_DEVICE)

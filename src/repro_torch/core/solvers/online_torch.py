@@ -37,6 +37,7 @@ from repro_torch.core.instance import PackedInstance, aligned, bcast_lead
 from repro_torch.core.objectives import makespan
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import traced_call
 
 BIG = 1 << 20
 
@@ -316,7 +317,8 @@ def dispatch_epoch(inst: PackedInstance, state: DispatchState,
 def simulate_online(inst: PackedInstance, dirty: torch.Tensor,
                     budget: torch.Tensor | int, n_epochs: int,
                     machine_rule: str = "earliest_finish",
-                    state0: DispatchState | None = None) -> OnlineSchedule:
+                    state0: DispatchState | None = None,
+                    t0: int = 0) -> OnlineSchedule:
     """Run the event-driven dispatcher for epochs ``0 .. n_epochs - 2``.
 
     ``dirty`` ``[*lead, >= n_epochs - 1]`` bool gates ready tasks (all
@@ -336,6 +338,9 @@ def simulate_online(inst: PackedInstance, dirty: torch.Tensor,
 
     The loop ends once every real task of every row is scheduled (later
     epochs are no-ops), checked every :data:`EXIT_CHECK_EVERY` epochs.
+    It starts at epoch ``t0``: where no real task arrives before ``t0``
+    (and ``state0`` holds no placement) the epochs before it place
+    nothing, so skipping them changes no result.
     """
     _check_rule(machine_rule)
     lead = tuple(dirty.shape[:-1])
@@ -351,8 +356,9 @@ def simulate_online(inst: PackedInstance, dirty: torch.Tensor,
         state0 = DispatchState(*(bcast_lead(x, lead, 1) for x in state0))
     lane, mfree = state0.split()
     padded = ~a.task_mask
-    for t in range(n_epochs - 1):
-        if t % EXIT_CHECK_EVERY == 0 and bool((lane.scheduled | padded).all()):
+    for t in range(t0, n_epochs - 1):
+        if (t - t0) % EXIT_CHECK_EVERY == 0 \
+                and bool((lane.scheduled | padded).all()):
             break
         lane, mfree = dispatch_epoch_shared(
             a, lane, mfree, dirty[..., t], budget, t,
@@ -482,10 +488,13 @@ def sweep_policies(batch: PackedInstance, intensity, thetas, windows,
     if windows.size == 0 or windows.min() < 1:
         raise ValueError(f"windows must be >= 1, got {windows.tolist()}")
     intensity = torch.as_tensor(intensity, dtype=torch.float32).to(dev)
-    return _sweep(_on(batch, dev), intensity,
-                  torch.as_tensor(np.asarray(thetas, np.float32), device=dev),
-                  torch.as_tensor(windows, device=dev),
-                  torch.as_tensor(np.asarray(stretches, np.float32),
-                                  device=dev),
-                  n_epochs=int(intensity.shape[-1]),
-                  max_window=int(windows.max()), machine_rule=machine_rule)
+    # traced_call: with tracing off this IS a direct _sweep call; with it
+    # on, the host records the call's wall-clock span, synchronised with
+    # the card (repro_torch.obs).
+    return traced_call(
+        "online_torch.sweep", _sweep, _on(batch, dev), intensity,
+        torch.as_tensor(np.asarray(thetas, np.float32), device=dev),
+        torch.as_tensor(windows, device=dev),
+        torch.as_tensor(np.asarray(stretches, np.float32), device=dev),
+        n_epochs=int(intensity.shape[-1]), max_window=int(windows.max()),
+        machine_rule=machine_rule)

@@ -11,9 +11,11 @@ tracer and global switch (``REPRO_TRACE=1``), and the same constraints:
 3. **Two clocks.**  Engine events are stamped in ticks (the simulation
    clock); host wall-clock spans use an injectable ``clock``.
 
-``Tracer.timed`` and ``traced_xla_call`` (the span around a jitted call)
-wait for the stream slice, where they become spans synchronised with the
-card.
+:meth:`Tracer.timed` and :func:`traced_call` are the counterparts of the
+reference's ``Tracer.timed`` and ``traced_xla_call``: a wall-clock span
+around one call, ended after the card has finished the call's work
+(``torch.cuda.synchronize`` where the reference has
+``jax.block_until_ready``).
 
 Event vocabulary (the schema ``docs/observability.md`` documents):
 
@@ -30,6 +32,8 @@ name                  ph    meaning
 ``lanes_active``      C     occupied lanes per tick
 ``queue_len``         C     jobs waiting for a lane per tick
 ``forecast_resolve``  i     MPC/forecast re-quantile boundary
+``xla:<name>``        X     wall-clock span of one timed call
+                            (args.first_call marks the first per name)
 ====================  ====  =====================================================
 
 Enable globally with ``REPRO_TRACE=1`` (checked on every
@@ -43,6 +47,8 @@ import json
 import os
 import time
 from typing import Any, Callable
+
+import torch
 
 # Exported simulation timebase: 1 epoch = 1 ms = 1000 Chrome-trace us.
 US_PER_EPOCH = 1000
@@ -91,6 +97,24 @@ class Tracer:
         """Host wall-clock span that just ended (duration known)."""
         self.events.append({"name": name, "ph": "X", "wall_end": self._clock(),
                             "wall_dur": float(seconds), "args": args})
+
+    def timed(self, name: str, fn: Callable, *args: Any, **kwargs: Any):
+        """Call ``fn`` and record its wall-clock span as ``xla:<name>``.
+
+        The counterpart of the reference's ``Tracer.timed``.  Before the
+        span ends, every CUDA device that holds a tensor of the result is
+        synchronised, so the span covers the card's work (the values are
+        unchanged).  The first call per ``name`` is flagged
+        ``first_call=True``; later calls are warm.
+        """
+        first = name not in self._first_calls
+        self._first_calls.add(name)
+        t0 = self._clock()
+        out = fn(*args, **kwargs)
+        for dev in _cuda_devices(out):
+            torch.cuda.synchronize(dev)
+        self.wall_span(f"xla:{name}", self._clock() - t0, first_call=first)
+        return out
 
     # -- export ----------------------------------------------------------------
 
@@ -171,6 +195,9 @@ class _NullTracer(Tracer):
     def wall_span(self, *a: Any, **k: Any) -> None:
         pass
 
+    def timed(self, name: str, fn: Callable, *args: Any, **kwargs: Any):
+        return fn(*args, **kwargs)
+
 
 NULL_TRACER = _NullTracer()
 
@@ -203,3 +230,29 @@ def get_tracer() -> Tracer:
         _GLOBAL = Tracer()
         return _GLOBAL
     return NULL_TRACER
+
+
+def _cuda_devices(out: Any) -> set[torch.device]:
+    """The CUDA devices of every tensor in ``out`` (nested tuples, lists
+    and dicts, named tuples included)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.device.type == "cuda" else set()
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return set().union(*map(_cuda_devices, out)) if out else set()
+    return set()
+
+
+def traced_call(name: str, fn: Callable, *args: Any, **kwargs: Any):
+    """Host-side span around one entry point's call.
+
+    The counterpart of the reference's ``traced_xla_call``.  With tracing
+    off this is exactly ``fn(*args, **kwargs)``: no clock read, no
+    synchronisation.  With tracing on it is :meth:`Tracer.timed` on the
+    ambient tracer.  Values are the same either way.
+    """
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return fn(*args, **kwargs)
+    return tracer.timed(name, fn, *args, **kwargs)

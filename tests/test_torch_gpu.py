@@ -498,3 +498,115 @@ def test_reduced_hymba_card_equals_cpu(cuda):
                               "pos": torch.tensor(90 + t, device=cuda), **cg})
         lc, cc = cpu.decode({"token": tok, "pos": torch.tensor(90 + t), **cc})
         torch.testing.assert_close(lg.cpu(), lc, atol=3e-2, rtol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# The stream path: the gate at the engine's two shapes, the TINY goldens on
+# the card, and the TINY grid's most backlogged cell and its banded-gate
+# poisson cell card vs CPU.
+# ---------------------------------------------------------------------------
+
+STREAM_GOLDEN = dict(arrivals="bursty", rate=0.08, horizon=192, n_lanes=3,
+                     family="layered", width=3, depth=2, n_machines=3,
+                     fleet="tiered", mean_dur=5.0, theta=0.5, window=96,
+                     stretch=1.5, seed=2024)
+STREAM_EXACT = ("rid", "arrival", "admitted", "queue_delay", "finished",
+                "budget", "greedy_makespan", "completed", "truncated")
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["day-ahead", "banded"])
+def test_gate_quantile_stream_shapes_bitwise(cuda, banded):
+    """``[1, 1216]`` (the day-ahead gate) and ``[51, 1216]`` (the banded
+    gate, every 24) over the FULL poisson cell's window."""
+    from repro_torch.forecast.rolling import rolling_forecasts
+    from repro_torch.stream.engine import stream_setup
+    knobs, _, _ = bench.stream_knobs()
+    rate = 0.9 * knobs["n_lanes"] / bench.probe_service_epochs(
+        knobs, device=cuda)
+    _, _, _, trace = stream_setup(bench.stream_config(knobs, "poisson",
+                                                      rate))
+    inten = torch.as_tensor(trace.intensity, device=cuda)
+    E = inten.shape[-1]
+    if banded:
+        # The engine's own noise: drawn on the CPU whatever the device.
+        xi = TorchDraws(bench.STREAM_SEED, "cpu").normal(
+            (n_replans(E, 24), E)).to(cuda)
+        rows = rolling_forecasts(inten, xi, 1.0, 24).point.contiguous()
+    else:
+        rows = inten[None].contiguous()
+    assert rows.shape == ((51 if banded else 1), 1216)
+    theta = torch.full_like(rows, 0.5)
+    window = torch.full(rows.shape[:1], 96, dtype=torch.int32, device=cuda)
+    reset_launches()
+    got = gate_quantile_stats(rows, theta, window, 96)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gate_quantile"] == 1
+    want = gate_quantile_stats_ref(rows, theta, window, 96)
+    for name, x, y in zip("abn", got, want):
+        assert _same_bits(x, y), name
+
+
+@pytest.mark.parametrize("shared_fleet", [False, True],
+                         ids=["partitioned", "shared"])
+def test_stream_goldens_on_card(cuda, shared_fleet):
+    import json
+    import os
+    from repro_torch.stream import StreamConfig, simulate_stream
+    name = ("stream_contention_tiny.json" if shared_fleet
+            else "stream_tiny.json")
+    with open(os.path.join(os.path.dirname(__file__), "golden", name)) as f:
+        golden = json.load(f)
+    reset_launches()
+    res = simulate_stream(StreamConfig(**STREAM_GOLDEN,
+                                       shared_fleet=shared_fleet),
+                          device=cuda)
+    assert LAUNCHES["gate_quantile"] == 1
+    assert {k: res.meta[k] for k in golden["meta"]} == golden["meta"]
+    assert len(res.events) == len(golden["events"])
+    for g, w in zip(res.events, golden["events"]):
+        assert set(g) == set(w)
+        for k, v in w.items():
+            if k in STREAM_EXACT:
+                assert g[k] == v, (w["rid"], k)
+            else:
+                np.testing.assert_allclose(g[k], v, rtol=1e-4, atol=2e-3)
+
+
+def _stream_card_equals_cpu(cuda, arrivals, shared_fleet, **gate):
+    """The TINY grid's ``arrivals`` cell at load 1.2 on the card and on
+    the CPU: the same jobs, schedules and counts, carbon within rtol
+    1e-6."""
+    knobs, loads, _ = bench.stream_knobs(tiny=True)
+    rate = max(loads) * knobs["n_lanes"] / bench.probe_service_epochs(
+        knobs, device="cpu")
+    card = bench.run_stream_cell(knobs, arrivals, max(loads), rate,
+                                 shared_fleet, device=cuda,
+                                 **gate)["result"]
+    cpu = bench.run_stream_cell(knobs, arrivals, max(loads), rate,
+                                shared_fleet, device="cpu", **gate)["result"]
+    assert len(card.jobs) == len(cpu.jobs) > 0
+    for a, b in zip(card.events, cpu.events):
+        assert {k: v for k, v in a.items() if k in STREAM_EXACT} == \
+            {k: v for k, v in b.items() if k in STREAM_EXACT}
+    for a, b in zip(card.jobs, cpu.jobs):
+        if b.finished:
+            np.testing.assert_array_equal(a.start, b.start)
+            np.testing.assert_array_equal(a.assign, b.assign)
+        np.testing.assert_allclose(a.carbon, b.carbon, rtol=1e-6)
+        np.testing.assert_allclose(a.greedy_carbon, b.greedy_carbon,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("shared_fleet", [False, True],
+                         ids=["partitioned", "shared"])
+def test_stream_tiny_bursty_card_equals_cpu(cuda, shared_fleet):
+    """The TINY grid's bursty cell at load 1.2 (the most backlog)."""
+    _stream_card_equals_cpu(cuda, "bursty", shared_fleet)
+
+
+def test_stream_tiny_banded_card_equals_cpu(cuda):
+    """The TINY poisson cell at load 1.2 under the forecast-banded gate
+    (every 24, scale 1): one seed gives one noise, so the rolling
+    forecasts, the K x E thresholds and every dispatch match the CPU's."""
+    _stream_card_equals_cpu(cuda, "poisson", False, forecast_every=24,
+                            forecast_scale=1.0)

@@ -22,6 +22,7 @@ from repro_torch.models.api import build_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.scenarios import sweep_structure
 from repro_torch.serve import ServeEngine
+from repro_torch.stream import StreamConfig, StreamEngine, simulate_stream
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -63,7 +64,10 @@ def test_guard_sees_the_whole_port():
     port = ROOT / "src" / "repro_torch"
     assert {port / "core" / "solvers" / "rolling.py",
             port / "forecast" / "rolling.py",
-            port / "forecast" / "models.py"} <= set(PORT_FILES)
+            port / "forecast" / "models.py",
+            port / "stream" / "__init__.py",
+            port / "stream" / "arrivals.py",
+            port / "stream" / "engine.py"} <= set(PORT_FILES)
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -125,6 +129,30 @@ def test_serve_engine_without_device_wants_the_card():
     model = build_model(configs.get("qwen1.5-0.5b").reduced(), "cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(model)
+
+
+def test_stream_engine_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.core.carbon import constant
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamEngine(constant(100.0, 64), (1.0,), (1.0,), 2, 2)
+
+
+def test_simulate_stream_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_stream(StreamConfig(horizon=32, n_lanes=2))
+
+
+def test_stream_bench_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_stream(tiny=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--only", "stream", "--instances", "16"])
 
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
