@@ -96,7 +96,22 @@ non-zero exit code if it fails:
     cells in ``BENCH_stream.json``, and the banded cell's event log equal
     to the same cell's on the CPU (as the TINY cell is held); then one
     pool tick in each fleet mode and one admission solve under
-    ``torch.profiler``.
+    ``torch.profiler``;
+14. learn — the gate-policy learner: ``ops.gate_threshold`` at the
+    ``learned_gate`` FULL grid's gate shape (240 rows x 2048 epochs,
+    window 48, per-epoch theta from a seeded raw) against the plain
+    sorted-window path on the same card tensors, thresholds and the
+    gradient of a weighted sum in theta bitwise, the launch timed beside
+    its bound; the tiny golden training run on the card against
+    ``tests/golden/learn_tiny.json`` at its tolerances (one
+    ``gate_quantile`` launch a step); then ``bench.run_learned_gate``'s
+    FULL grid (60 cells x 4 instances, horizon 2048, both stretches) cut
+    to 5 training steps a stretch, launch counts read around it
+    (``gate_quantile`` once for the fixed sweep, once a step, once a hard
+    evaluation): every schedule complete and validator-clean, learned >=
+    fixed everywhere, the fixed-grid fields equal to ``BENCH_learn.json``'s
+    within its rounding; each step's wall, and one training step under
+    ``torch.profiler`` (the card's kernels only).
 
 The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches: the main path's), the card's name and
@@ -641,7 +656,8 @@ def layer_phase(dev, wall_s: float) -> None:
 def profile_busy(label: str, fn) -> None:
     """Wall time, device busy time and the heaviest kernels of one call of
     ``fn``, from a ``torch.profiler`` trace (kernels only, overlapping
-    intervals merged)."""
+    intervals merged), and the host and device time of its
+    ``repro_torch.*`` ranges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -655,6 +671,21 @@ def profile_busy(label: str, fn) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith("repro_torch.")]
+    if not report_kernels(label, kernels, wall_ms):
+        return
+    for e in prof.key_averages():
+        if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
+            dev_ms = (getattr(e, "device_time_total", None)
+                      or getattr(e, "cuda_time_total", 0)) / 1e3
+            print(f"  {e.key}: {dev_ms:.3f} ms device, "
+                  f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
+
+
+def report_kernels(label: str, kernels: list, wall_ms: float,
+                   note: str = "") -> bool:
+    """Print the device busy share (overlapping kernel intervals merged),
+    the kernel count, the five heaviest kernels and the port's own; False
+    (busy share not measured) when the trace holds no device time."""
     busy_us, end = 0.0, float("-inf")
     for lo, hi in sorted((e.time_range.start, e.time_range.end)
                          for e in kernels):
@@ -662,17 +693,11 @@ def profile_busy(label: str, fn) -> None:
         end = max(end, hi)
     if busy_us <= 0:
         print(f"profiler, {label}: no device time recorded; busy share "
-              "not measured", flush=True)
-        return
+              f"not measured{note}", flush=True)
+        return False
     print(f"profiler, {label}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%), "
-          f"{len(kernels)} kernels", flush=True)
-    for e in prof.key_averages():
-        if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
-            dev_ms = (getattr(e, "device_time_total", None)
-                      or getattr(e, "cuda_time_total", 0)) / 1e3
-            print(f"  {e.key}: {dev_ms:.3f} ms device, "
-                  f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
+          f"{len(kernels)} kernels{note}", flush=True)
     by_name: dict[str, list] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
@@ -684,6 +709,7 @@ def profile_busy(label: str, fn) -> None:
                                    "flash_", "ssd_")):
             print(f"  port kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
                   f"{len(ts)} launches", flush=True)
+    return True
 
 
 def device_kernel_ms(fn, prefix: str, calls: int = 10) -> dict:
@@ -1645,6 +1671,271 @@ def stream_path(dev, knobs, rate, service) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+LEARN_SMOKE_STEPS = 5          # training steps a stretch on the FULL grid
+LEARN_GOLDEN_TOL = {"loss_curve": (1e-3, 2e-4), "final_theta": (1e-3, 2e-3),
+                    "learned_savings_pct": (1e-4, 2e-3)}   # (rtol, atol)
+# The fixed-grid fields of BENCH_learn.json's rows, each held to its file
+# value within its rounding (0.001); the greedy carbon, a float32 sum that
+# XLA and torch associate differently (one ulp is 0.001-0.002 g at 8-33
+# kg), also within rtol 1e-6.
+LEARN_FIXED = ("greedy_carbon_g", "greedy_makespan", "greedy_utilization_pct",
+               "online_savings_pct_by_policy")
+
+
+def profile_kernels(label: str, fn) -> None:
+    """:func:`profile_busy` from a trace of the card alone (no host ops:
+    a learner step launches ~3e5 kernels, and host events would multiply
+    the trace), with the time the trace took to read back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    report_kernels(label, kernels, (t1 - t0) * 1e3,
+                   f" (trace read back in {time.perf_counter() - t1:.1f} s)")
+
+
+def learn_gate_phase(dev) -> None:
+    """The learner's gate at the FULL grid's shape ([240, 2048], window
+    48, per-epoch theta from a seeded raw) on the grid's own AU-SA
+    windows: ``ops.gate_threshold`` (one gate_quantile launch) against the
+    plain sorted-window path on the same card tensors; the thresholds and
+    the gradient of a seeded weighted sum in theta bitwise; the launch
+    timed beside its bound."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.solvers import online_torch
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.scenarios import build_batch
+
+    sb = build_batch(bench.structure_spec(
+        instances_per_cell=bench.LEARN_PER_CELL), dev)
+    inten = sb.intensity.contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    raw = torch.randn(inten.shape, generator=g, device=dev)
+    weight = torch.randn(inten.shape, generator=g, device=dev)
+    out = []
+    for kernel in (True, False):
+        theta = torch.sigmoid(raw).requires_grad_(True)
+        if kernel:
+            reset_launches()
+            thr = ops.gate_threshold(inten, theta, 48, 48)
+            check(LAUNCHES.get("gate_quantile", 0) == 1,
+                  "learn gate: gate_threshold did not launch gate_quantile "
+                  "once")
+        else:
+            sv, n = online_torch.sorted_windows(inten, 48, 48)
+            thr = online_torch.quantile_threshold(sv, n, theta)
+        (thr * weight).sum().backward()
+        out.append((thr.detach(), theta.grad))
+    torch.cuda.synchronize()
+    (t_k, g_k), (t_p, g_p) = out
+    check(same_bits(t_k, t_p), "learn gate: the kernel's thresholds differ "
+          "from the plain path's")
+    check(same_bits(g_k, g_p), "learn gate: the gradient in theta through "
+          "the kernel's selection differs from the plain path's")
+    print(f"learn gate: ops.gate_threshold at {tuple(inten.shape)} (window "
+          "48, per-epoch theta): thresholds and d(sum thr x w)/d theta "
+          "bitwise equal to sorted_windows + quantile_threshold on the "
+          f"card (|grad| max {float(g_k.abs().max()):.4f})", flush=True)
+    window = torch.full(inten.shape[:1], 48, dtype=torch.int32, device=dev)
+    gate_timing("learn", inten, torch.sigmoid(raw), window, 48, n,
+                l2_flush(dev), KERNEL_REPS)
+
+
+def learn_path(dev) -> dict:
+    """The gate-policy learner: the tiny golden run on the card, then the
+    learned_gate cell's FULL grid (240 instances, horizon 2048, both
+    stretches) cut to LEARN_SMOKE_STEPS steps a stretch, launch counts
+    read around it, and one profiled training step."""
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.learn import train_gate
+    from repro_torch.learn.train import greedy_reference
+    from repro_torch.scenarios import build_batch
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "tests", "golden", "learn_tiny.json")) as f:
+        golden = json.load(f)["learn_tiny"]
+    reset_launches()
+    tiny = bench.run_learn_tiny(dev)
+    steps = bench.LEARN_TINY["steps"]
+    check(LAUNCHES.get("gate_quantile", 0) == steps + 1,
+          f"learn TINY: gate_quantile launched "
+          f"{LAUNCHES.get('gate_quantile', 0)} times, expected {steps + 1} "
+          "(one a step, one for the hard evaluation)")
+    check(tiny["families"] == golden["families"], "learn TINY: families")
+    for key, (rtol, atol) in LEARN_GOLDEN_TOL.items():
+        check(bool(np.allclose(tiny[key], golden[key], rtol=rtol,
+                               atol=atol)),
+              f"learn TINY on the card: {key} {tiny[key]} differs from "
+              f"tests/golden/learn_tiny.json {golden[key]}")
+    print(f"learn path: the tiny golden run on the card ({steps} steps, "
+          f"{statistics.mean(tiny['step_seconds']):.4f} s a step) matches "
+          "tests/golden/learn_tiny.json at its tolerances; final theta "
+          f"{tiny['final_theta']}, learned savings "
+          f"{tiny['learned_savings_pct']}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rec = bench.run_learned_gate(steps=LEARN_SMOKE_STEPS, device=dev)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    S = len(rec["grid"]["stretches"])
+    want = 1 + S * (LEARN_SMOKE_STEPS + 1)
+    check(launches.get("gate_quantile", 0) == want,
+          f"gate_quantile launched {launches.get('gate_quantile', 0)} times "
+          f"on the learn path, expected {want} (the fixed sweep, one a "
+          "training step, one a hard evaluation)")
+    check(rec["instances"] == 240 and len(rec["cells"]) == 60
+          and rec["horizon"] == 2048,
+          f"learn FULL: {rec['instances']} instances in "
+          f"{len(rec['cells'])} cells, horizon {rec['horizon']}")
+    with open(os.path.join(ROOT, "BENCH_learn.json")) as f:
+        ref = json.load(f)
+    for got, want_row in zip(rec["cells"], ref["cells"]):
+        for k in LEARN_FIXED:
+            g = np.asarray(got[k], float)
+            w = np.asarray(want_row[k], float)
+            tol = 1e-3 + 1e-9 + (1e-6 * np.abs(w)
+                                 if k == "greedy_carbon_g" else 0.0)
+            check(bool(np.all(np.abs(g - w) <= tol)),
+                  f"learn FULL cell {want_row['family']}-m"
+                  f"{want_row['n_machines']}-{want_row['fleet']}: {k} "
+                  f"{got[k]} differs from BENCH_learn.json's {want_row[k]}")
+    # The kept savings are max(trained, fixed) by construction, so the
+    # acceptance flag cannot fail; the trained savings are what training
+    # produced.
+    trained = [c["learned"][sx]["trained_savings_pct"]
+               for c in rec["cells"] for sx in c["learned"]]
+    check(bool(np.isfinite(trained).all()),
+          "learn FULL: a trained saving is not finite")
+    n_ge = sum(c["learned"][sx]["trained_savings_pct"]
+               >= c["learned"][sx]["fixed_best_savings_pct"]
+               for c in rec["cells"] for sx in c["learned"])
+    walls = rec["learn_step_seconds"]
+    print(f"learn path: trained savings finite in all {len(trained)} "
+          f"(cell, stretch) pairs; trained >= best fixed in {n_ge}",
+          flush=True)
+    print(f"learn path: the learned_gate FULL grid ({len(rec['cells'])} "
+          f"cells x {rec['instances_per_cell']} = {rec['instances']} "
+          f"instances, horizon {rec['horizon']}, pad T={rec['pad_tasks']} "
+          f"M={rec['pad_machines']}) cut to {LEARN_SMOKE_STEPS} steps a "
+          f"stretch: {rec['seconds']:.3f} s wall; stages " + json.dumps(
+              {k: round(v, 3) for k, v in rec["seconds_by_stage"].items()})
+          + "; seconds a step " + json.dumps(
+              {sx: [round(t, 4) for t in ts] for sx, ts in walls.items()})
+          + f"; launches {json.dumps(launches)}; every fixed and learned "
+          "schedule complete and validator-clean; learned >= fixed "
+          "everywhere; the fixed-grid fields equal BENCH_learn.json's "
+          f"within its rounding; peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    for fam, by_sx in rec["summary_by_family"].items():
+        for sx, d in by_sx.items():
+            r = ref["summary_by_family"][fam][sx]
+            print(f"learn summary ({LEARN_SMOKE_STEPS} steps): {fam} S={sx}"
+                  f" learned {d['learned_savings_pct']}% vs fixed "
+                  f"{d['fixed_best_savings_pct']}% ({d['improved_cells']}/"
+                  f"{d['cells']} improved); BENCH_learn.json (150 steps): "
+                  f"{r['learned_savings_pct']}% vs "
+                  f"{r['fixed_best_savings_pct']}%", flush=True)
+
+    # One training step of the same grid at S=1.5, profiled.
+    spec = bench.structure_spec(instances_per_cell=bench.LEARN_PER_CELL)
+    sb = build_batch(spec, dev)
+    E = sb.intensity.shape[-1]
+    baseline = greedy_reference(sb.batch, sb.cum, E)
+    theta0 = np.full(len(spec.cells), 0.3, np.float32)
+    window = np.full(sb.cell_of.shape, 48, np.int32)
+    cfg = bench.FULL_LEARN._replace(steps=1)
+
+    def step():      # warm: the cut grid above ran the same shapes
+        tr = train_gate(sb.batch, sb.intensity, sb.cum, sb.cell_of, window,
+                        1.5, theta0, cfg=cfg, baseline=baseline, device=dev)
+        tr.theta.cpu()
+    reset_launches()
+    profile_kernels(f"one training step of the FULL grid ({rec['instances']}"
+                    f" rows x {E} epochs, S=1.5)", step)
+    check(LAUNCHES.get("gate_quantile", 0) == 1,
+          "learn: a training step did not launch gate_quantile once")
+    learn_step_card_vs_cpu(sb, baseline, dev)
+    print(f"learn path: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return {"launches": launches, "seconds": rec["seconds"]}
+
+
+def learn_step_card_vs_cpu(sb, baseline, dev) -> None:
+    """One training step's per-row gradients (``per_row_grads``, one
+    backward through the soft gate, ``expected_wait`` over every epoch and
+    the soft starts) and their ``seq_sum`` at the FULL grid's shape, card
+    against CPU on the same inputs: at rtol 1e-4, atol 1e-6 x max |grad|
+    (the CPU tests' gradient-parity tolerance), and each row's (carbon,
+    penalty) at rtol 1e-6 (the penalty also at atol 1e-6)."""
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.core.instance import PackedInstance
+    from repro_torch.core.solvers.online_torch import stretch_budget
+    from repro_torch.learn import logit
+    from repro_torch.learn import train as ttrain
+
+    rng = np.random.default_rng(18)
+    G = int(sb.cell_of.max()) + 1
+    raw = torch.stack([logit(rng.uniform(0.2, 0.6, G).astype(np.float32)),
+                       torch.as_tensor(rng.normal(0.0, 0.5, G)
+                                       .astype(np.float32))], dim=1)
+    feats = rng.normal(0.0, 1.0, tuple(sb.intensity.shape)).astype(np.float32)
+    cfg = bench.FULL_LEARN
+    out, secs = [], []
+    for d in (dev, torch.device("cpu")):
+        batch = PackedInstance(*(f.to(d) for f in sb.batch))
+        inten, cum = sb.intensity.to(d), sb.cum.to(d)
+        ms0, bc = (x.to(d) for x in baseline)
+        B, E = inten.shape
+        t0 = time.perf_counter()
+        g, aux = ttrain.per_row_grads(
+            raw.to(d), torch.as_tensor(sb.cell_of, device=d),
+            lambda rows: ttrain.per_row_loss(
+                rows, torch.tensor(cfg.temp0, device=d), batch, cum, inten,
+                torch.full((B,), 48, dtype=torch.int32, device=d), 48,
+                torch.as_tensor(feats, device=d), stretch_budget(1.5, ms0),
+                torch.clamp_min(bc, 1e-6),
+                torch.clamp_min(ms0.to(torch.float32), 1.0),
+                torch.tensor(1.0, device=d) / torch.tensor(float(B),
+                                                           device=d),
+                cfg, E))
+        total = ttrain.seq_sum(g)
+        out.append([x.cpu().numpy() for x in (g, total, *aux)])
+        secs.append(time.perf_counter() - t0)
+    (g_k, t_k, c_k, p_k), (g_c, t_c, c_c, p_c) = out
+    check(bool((g_c != 0).any()), "learn step: every CPU gradient is zero")
+    for name, a, b in (("per-row gradients", g_k, g_c),
+                       ("seq_sum of the gradients", t_k, t_c)):
+        tol = 1e-4 * np.abs(b) + 1e-6 * np.abs(b).max()
+        bad = int((np.abs(a - b) > tol).sum())
+        check(bad == 0, f"learn step at {tuple(sb.intensity.shape)}: {bad} "
+              f"{name} differ between card and CPU beyond rtol 1e-4")
+    for name, a, b, atol in (("carbon", c_k, c_c, 0.0),
+                             ("penalty", p_k, p_c, 1e-6)):
+        check(bool(np.all(np.abs(a - b) <= 1e-6 * np.abs(b) + atol)),
+              f"learn step: the rows' {name} differs between card and CPU "
+              f"(max |diff| {float(np.abs(a - b).max())})")
+    print(f"learn step card vs CPU at {tuple(sb.intensity.shape)} (S=1.5, "
+          f"temp {cfg.temp0}, per-cell raw and per-epoch features from seed "
+          "18): per-row gradients and their seq_sum within rtol 1e-4 / atol "
+          "1e-6 x max, (carbon, penalty) within rtol 1e-6; |grad| max "
+          f"{float(np.abs(g_c).max()):.3e}, max |diff| "
+          f"{float(np.abs(g_k - g_c).max()):.3e}; card "
+          f"{secs[0]:.3f} s, CPU {secs[1]:.3f} s", flush=True)
+
+
 def serve_phase(dev) -> dict:
     """hymba-1.5b at full width through ServeEngine; launch counts read
     around the run."""
@@ -1832,9 +2123,12 @@ def main() -> int:
     knobs, rate, service = stream_full_setup(dev)
     stream_gate_phase(dev, knobs, rate)
     stream = stream_path(dev, knobs, rate, service)
+    learn_gate_phase(dev)
+    learn = learn_path(dev)
 
     paths = {"main": main, "online": online, "serve": serve,
-             "forecast": forecast, "structure": structure, "stream": stream}
+             "forecast": forecast, "structure": structure, "stream": stream,
+             "learn": learn}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

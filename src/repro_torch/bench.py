@@ -10,7 +10,10 @@ The ``forecast`` cell (``benchmarks/forecast_robustness.py``) sets the
 day-ahead gate, the rolling re-quantile gate and the MPC replanner under
 forecast error beside the perfect gate and the offline bound; the
 ``structure`` cell (``benchmarks/structure_sweep.py``) sweeps DAG family x
-size x server count x fleet; the ``stream`` cell
+size x server count x fleet; the ``learned_gate`` cell
+(``benchmarks/learned_gate.py``) learns the gate's theta per structure
+cell and stretch by gradient and sets it beside the fixed grid; the
+``stream`` cell
 (``benchmarks/stream_serve.py``) streams arriving DAG jobs through the
 lane-pool engine at calibrated loads, in both fleet modes.  The same
 seeds give the same instances and carbon windows as the reference's
@@ -20,6 +23,7 @@ harness.
     python -m repro_torch.bench --only online --instances 1000
     python -m repro_torch.bench --only forecast,structure
     python -m repro_torch.bench --only stream        # FULL, both fleet modes
+    python -m repro_torch.bench --only learned_gate  # FULL, 150 steps
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -54,9 +58,12 @@ from repro_torch.device import (DEFAULT_DEVICE, Stages, resolve_device,
                                 synchronize)
 from repro_torch.forecast import (day_ahead_dirty_mask, n_replans,
                                   rolling_dirty_mask)
+from repro_torch.learn import LearnConfig, evaluate_theta, train_gate
 from repro_torch.scenarios import (ScenarioConfig, SweepSpec, build_fleet,
-                                   sample_job, structure_cells,
-                                   sweep_structure, trend_summary)
+                                   learned_summary, pack_aligned,
+                                   sample_batch, sample_job,
+                                   structure_cells, sweep_structure,
+                                   trend_summary)
 from repro_torch.stream import StreamConfig, simulate_stream
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
@@ -720,6 +727,134 @@ def structure_sweep(instances, device):
 
 
 # ---------------------------------------------------------------------------
+# The learned_gate cell (benchmarks/learned_gate.py): gate thetas learned
+# by gradient vs the fixed policy grid, per family, at equal stretch.
+# ---------------------------------------------------------------------------
+
+FULL_LEARN = LearnConfig(steps=150)
+LEARN_PER_CELL = 4              # FULL: 60 cells x 4 = 240 instances
+
+
+def run_learned_gate(spec: SweepSpec | None = None,
+                     steps: int = FULL_LEARN.steps,
+                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The structure grid with learned thetas, without the offline bound:
+    per (cell, stretch) a theta trained for ``steps`` steps from the
+    cell's best fixed policy (``FULL_LEARN`` otherwise), kept where its
+    hard evaluation improves on it.  ``spec`` defaults to the FULL grid at
+    ``LEARN_PER_CELL`` instances a cell.  Returns the reference harness's
+    record (rows as ``cells``, the family x stretch summary, the
+    acceptance flag) with the synchronised wall seconds and each training
+    step's wall (``learn_step_seconds``, each step between two
+    synchronisations).  Raises if the learned savings fall below the
+    fixed grid's anywhere."""
+    dev = resolve_device(device)
+    if spec is None:
+        spec = structure_spec(instances_per_cell=LEARN_PER_CELL)
+    cfg = FULL_LEARN._replace(steps=steps)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    rows, meta = sweep_structure(spec, offline=False, learn=cfg, device=dev)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    summary, ok = learned_summary(rows)
+    if not ok:
+        raise AssertionError("learned thetas fell below the fixed grid "
+                             "somewhere: the init-fallback rule is broken")
+    stage_seconds = meta.pop("seconds")
+    return {"bench": "learned_gate", "seconds": seconds, "seconds_by_stage": stage_seconds, **meta,
+            "summary_by_family": summary,
+            "acceptance": {"learned_ge_fixed_everywhere": ok},
+            "trends": trend_summary(rows), "cells": rows}
+
+
+# tests/test_learn_golden.py's seed-pinned tiny run, which
+# tests/golden/learn_tiny.json locks: chain and layered tiered cells, two
+# instances each, 40 steps from theta 0.5.
+LEARN_TINY = dict(seed=2024, families=("chain", "layered"), per_cell=2,
+                  horizon=600, steps=40, stretch=1.5, window=48, theta0=0.5)
+
+
+def learn_tiny_inputs(device: str | torch.device = DEFAULT_DEVICE) -> tuple:
+    """The golden tiny run's inputs: the stacked batch on ``device``, and
+    as numpy arrays the intensities ``[4, 600]``, cumulative traces, group
+    of each instance and windows (the reference's seeded streams)."""
+    k = LEARN_TINY
+    rng = np.random.default_rng(k["seed"])
+    year = synthesize("AU-SA", days=30, seed=k["seed"])
+    insts, group = [], []
+    for gi, fam in enumerate(k["families"]):
+        cfg = ScenarioConfig(family=fam, fleet="tiered", n_jobs=3, width=2,
+                             depth=2, n_machines=3)
+        insts += sample_batch(rng, cfg, k["per_cell"])
+        group += [gi] * k["per_cell"]
+    batch = pack_aligned(insts, device=resolve_device(device))
+    wins = [year.window(int(rng.integers(0, year.n_epochs - k["horizon"])),
+                        k["horizon"]) for _ in insts]
+    return (batch, np.stack([w.intensity for w in wins]),
+            np.stack([w.cumulative() for w in wins]), np.asarray(group),
+            np.full(len(insts), k["window"], np.int32))
+
+
+def run_learn_tiny(device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """The golden tiny run on ``device``: its loss curve, final thetas and
+    the learned thetas' hard-dispatch savings per family, rounded as the
+    golden stores them."""
+    dev = resolve_device(device)
+    k = LEARN_TINY
+    batch, intens, cums, group, window = learn_tiny_inputs(dev)
+    res = train_gate(batch, intens, cums, group, window, k["stretch"],
+                     np.full(len(k["families"]), k["theta0"], np.float32),
+                     LearnConfig(steps=k["steps"]), device=dev)
+    sav = evaluate_theta(batch, intens, cums, res.theta[torch.as_tensor(
+        group, device=dev)], window, k["stretch"], device=dev)[0]
+    sav = sav.cpu().numpy()
+    return {
+        "families": list(k["families"]),
+        "loss_curve": [round(float(v), 6) for v in res.loss_curve.cpu()],
+        "final_theta": [round(float(v), 6) for v in res.theta.cpu()],
+        "learned_savings_pct": [
+            round(100 * float(sav[group == gi].mean()), 3)
+            for gi in range(len(k["families"]))],
+        "step_seconds": res.step_seconds,
+    }
+
+
+def learned_gate(instances, device):
+    """The FULL grid at ``instances`` per cell, 150 steps a stretch: one
+    row per cell, its learned fields flattened per stretch
+    (``learned_S<stretch>_*``); prints the family x stretch summary and
+    the step walls."""
+    rec = run_learned_gate(structure_spec(instances_per_cell=instances),
+                           device=device)
+    steps = [s for v in rec["learn_step_seconds"].values() for s in v]
+    print(f"# learned_gate: {len(rec['cells'])} cells x "
+          f"{rec['instances_per_cell']} instances, {rec['learn']['steps']} "
+          f"steps a stretch, {rec['seconds']:.3f} s; a step "
+          f"{np.mean(steps):.4f} s mean, {np.median(steps):.4f} median, "
+          f"{max(steps):.4f} max; stages " + " ".join(
+              f"{k}={v:.3f}" for k, v in rec["seconds_by_stage"].items()),
+          flush=True)
+    for fam, by_sx in rec["summary_by_family"].items():
+        for sx, d in by_sx.items():
+            print(f"#   {fam} S={sx}: learned {d['learned_savings_pct']}% "
+                  f"vs fixed {d['fixed_best_savings_pct']}% "
+                  f"({d['improved_cells']}/{d['cells']} cells improved)",
+                  flush=True)
+    out = []
+    for r in rec["cells"]:
+        row = {k: v for k, v in r.items() if not isinstance(v, (list, dict))}
+        for sx, cell in r["learned"].items():
+            for k in ("theta", "savings_pct", "fixed_best_savings_pct",
+                      "improved"):
+                row[f"learned_S{sx}_{k}"] = cell[k]
+        out.append({"bench": "learned_gate", **row,
+                    "steps": rec["learn"]["steps"],
+                    "seconds": rec["seconds"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The stream cell (benchmarks/stream_serve.py): the streaming dispatch
 # service under load — throughput, queue delay and savings.
 # ---------------------------------------------------------------------------
@@ -937,12 +1072,15 @@ CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "online": (online_vs_offline, "online_vs_offline"),
          "forecast": (forecast_robustness, "forecast_robustness"),
          "structure": (structure_sweep, "structure_sweep"),
-         "stream": (stream_serve, "stream_serve")}
+         "stream": (stream_serve, "stream_serve"),
+         "learned_gate": (learned_gate, "learned_gate")}
 
 # Instances per cell when --instances is not given: the paper's batch for
-# the forecast cell, 16 per grid cell for the structure sweep (960); the
-# stream cell runs its FULL grid above 16, TINY at 16 or below.
-DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16, "stream": 1000}
+# the forecast cell, 16 per grid cell for the structure sweep (960), 4 for
+# the learned gate (240); the stream cell runs its FULL grid above 16,
+# TINY at 16 or below.
+DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16, "stream": 1000,
+                     "learned_gate": LEARN_PER_CELL}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -366,6 +366,14 @@ def simulate_online(inst: PackedInstance, dirty: torch.Tensor,
     return lane.merge(mfree).schedule()
 
 
+def stretch_budget(stretch, ms0: torch.Tensor) -> torch.Tensor:
+    """``int(stretch * makespan)`` in float32, truncated as the
+    reference's ``astype(int32)`` truncates; ``stretch`` broadcasts
+    against ``ms0``."""
+    return (torch.as_tensor(stretch, dtype=torch.float32, device=ms0.device)
+            * ms0.to(torch.float32)).to(torch.int32)
+
+
 def _on(inst: PackedInstance, dev: torch.device) -> PackedInstance:
     return PackedInstance(*(f.to(dev) for f in inst))
 
@@ -409,8 +417,7 @@ def online_carbon_gated_torch(inst: PackedInstance, intensity,
                           device=dev), 0, n_epochs,
         machine_rule=machine_rule, state0=state0)
     ms0 = makespan(inst, g.start, g.assign)
-    budget = (torch.tensor(stretch, dtype=torch.float32, device=dev)
-              * ms0.to(torch.float32)).to(torch.int32)
+    budget = stretch_budget(stretch, ms0)
     dirty = dirty_mask(intensity, theta, window, max_window=int(window))
     return simulate_online(inst, dirty, budget, n_epochs,
                            machine_rule=machine_rule, state0=state0)
@@ -460,7 +467,7 @@ def _sweep(batch: PackedInstance, intensity: torch.Tensor,
     dirty = dirty_mask(inten, theta_r, window_r, max_window)       # [B,Th,W,E]
     dirty = dirty[..., None, :].expand(B + (Th, W, S, n_epochs)) \
         .reshape(B + (Th * W * S, n_epochs))
-    budget = (stretches * ms0[..., None].to(torch.float32)).to(torch.int32)
+    budget = stretch_budget(stretches, ms0[..., None])
     budget = budget[..., None, None, :].expand(B + (Th, W, S)) \
         .reshape(B + (Th * W * S,))
     gated = simulate_online(batch, dirty, budget, n_epochs,

@@ -10,7 +10,9 @@ loaded again.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
-that it went through the kernels.
+that it went through the kernels.  The kernels are forward-only:
+:func:`refuse_grad` is every wrapper's guard against an input that would
+need a gradient through one.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
@@ -43,6 +47,24 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def refuse_grad(name: str, **inputs: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``.
+
+    A kernel fills fresh buffers that carry no autograd history, so an
+    input that requires grad would lose its gradient silently on the card.
+    The guard runs on every device, so the plain version on the CPU
+    refuses alike.  Callers detach what the kernel only selects from (as
+    ``ops.gate_threshold`` does) or run under ``torch.no_grad()``.
+    """
+    if not torch.is_grad_enabled():
+        return
+    live = [k for k, x in inputs.items() if x.requires_grad]
+    if live:
+        raise ValueError(f"{name}: the kernel is forward-only, but {live} "
+                         "require grad; detach them or run under "
+                         "torch.no_grad()")
 
 
 def nvcc() -> str:

@@ -47,6 +47,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must lie on one device")
     if isinstance(window, bool) or not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
+    build.refuse_grad(NAME, q=q, k=k, v=v)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

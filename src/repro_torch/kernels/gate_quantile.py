@@ -53,6 +53,7 @@ def _check(intensity: torch.Tensor, theta: torch.Tensor,
     if isinstance(max_window, bool) or not isinstance(max_window, int) \
             or max_window < 1:
         raise ValueError(f"max_window must be an int >= 1, got {max_window!r}")
+    build.refuse_grad(NAME, intensity=intensity, theta=theta)
 
 
 def _launch(intensity: torch.Tensor, theta: torch.Tensor,

@@ -61,6 +61,11 @@ def gate_threshold(intensity: torch.Tensor, theta, window,
     the valid count; the ``np.quantile`` lerp stays out here, in
     ``online_torch.quantile_threshold``'s expression ("select in the
     kernel, combine in the wrapper").
+
+    The threshold is differentiable in ``theta``: the kernel's selection is
+    piecewise constant in it and gets ``theta.detach()``, while the lerp
+    below takes the live ``theta``, so the gradient ``diff * (n - 1)`` is
+    the plain path's, bit for bit.
     """
     with torch.profiler.record_function("repro_torch.gate_threshold"):
         dev = intensity.device
@@ -71,7 +76,7 @@ def gate_threshold(intensity: torch.Tensor, theta, window,
                                  device=dev).expand(intensity.shape[:-1])
         a, b, n = (x.view(intensity.shape) for x in gate_quantile_stats(
             intensity.reshape(-1, E).contiguous(),
-            theta.reshape(-1, E).contiguous(),
+            theta.detach().reshape(-1, E).contiguous(),
             window.reshape(-1).contiguous(), max_window))
         vi = theta * (n - 1).to(torch.float32)
         gamma = vi - torch.floor(vi)

@@ -40,6 +40,7 @@ def _check(start: torch.Tensor, dur: torch.Tensor, cum: torch.Tensor) -> None:
                          f"got {tuple(cum.shape)}")
     if not (start.device == dur.device == cum.device):
         raise ValueError("start, dur and cum must lie on one device")
+    build.refuse_grad(NAME, cum=cum)
 
 
 def _launch(start: torch.Tensor, dur: torch.Tensor,

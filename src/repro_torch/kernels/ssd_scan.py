@@ -57,6 +57,7 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError(f"chunk must be an int >= 1, got {chunk!r}")
     if not (x.device == dt.device == A.device == Bm.device == Cm.device):
         raise ValueError("x, dt, A, B and C must lie on one device")
+    build.refuse_grad(NAME, x=x, dt=dt, A=A, B=Bm, C=Cm)
 
 
 def _launch(x, dt, A, Bm, Cm, chunk: int):

@@ -13,10 +13,8 @@ reference's, so the same seeds give the same instances.
     batching   — pad mixed-shape instances to one stacked batch (inert
                  padding on the task, machine and batch axes)
     sweep      — the batched structure sweep (all cells x instances x gate
-                 policies in one dispatch, plus the offline SA bound)
-
-The reference's ``learned_summary`` (learned gate thetas) is not ported
-yet.
+                 policies in one dispatch, plus the offline SA bound and
+                 the learned gate thetas; ``learned_summary``)
 """
 from repro_torch.scenarios.batching import (aligned_shape, pack_aligned,
                                             pad_stacked, padding_rows)
@@ -25,14 +23,14 @@ from repro_torch.scenarios.fleets import FLEETS, FLEET_NAMES, build_fleet
 from repro_torch.scenarios.generator import (ScenarioConfig, sample_batch,
                                              sample_instance, sample_job)
 from repro_torch.scenarios.sweep import (SweepBatch, SweepSpec, build_batch,
-                                         structure_cells, sweep_structure,
-                                         trend_summary)
+                                         learned_summary, structure_cells,
+                                         sweep_structure, trend_summary)
 
 __all__ = [
     "FAMILIES", "FAMILY_NAMES", "build_dag",
     "FLEETS", "FLEET_NAMES", "build_fleet",
     "ScenarioConfig", "sample_batch", "sample_instance", "sample_job",
     "aligned_shape", "pack_aligned", "pad_stacked", "padding_rows",
-    "SweepBatch", "SweepSpec", "build_batch", "structure_cells",
-    "sweep_structure", "trend_summary",
+    "SweepBatch", "SweepSpec", "build_batch", "learned_summary",
+    "structure_cells", "sweep_structure", "trend_summary",
 ]

@@ -14,10 +14,12 @@ padding is inert) and the whole sweep runs as
   call for the offline SA bound (the paper's S-stretch bi-level protocol).
 
 Every greedy and gated schedule is checked by the shared validator.
+With ``learn=`` the sweep also trains a gate theta per cell and stretch
+(:mod:`repro_torch.learn`) and keeps it where its hard evaluation beats
+the best fixed policy (:func:`learned_summary` compares the two).
 
-Not ported yet: the reference's ``learn=`` branch (learned gate thetas)
-and its ``devices``/``processes`` sharded branch; they wait for the
-learn and shard modules.
+Not ported yet: the reference's ``devices``/``processes`` sharded branch;
+it waits for the shard module.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.core.solvers.online_torch import (policy_grid,
                                                    sweep_policies)
 from repro_torch.core.validate import total_violations_batch
 from repro_torch.device import DEFAULT_DEVICE, Stages, resolve_device
+from repro_torch.learn import LearnConfig, evaluate_theta, train_gate
 from repro_torch.scenarios.batching import pack_aligned
 from repro_torch.scenarios.generator import ScenarioConfig, sample_batch
 
@@ -111,6 +114,7 @@ def build_batch(spec: SweepSpec,
 
 
 def sweep_structure(spec: SweepSpec, offline: bool = True,
+                    learn: LearnConfig | None = None,
                     device: str | torch.device = DEFAULT_DEVICE
                     ) -> tuple[list[dict], dict]:
     """Run the sweep on ``device``; returns (one aggregate row per cell,
@@ -122,8 +126,22 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
     bound's savings.  ``offline=False`` skips the SA bound: the
     dispatch-only path draws nothing, which is what the golden locks.
     The offline bound's SA draws come from ``TorchDraws(spec.seed)``.
-    ``meta["seconds"]`` holds the wall time of each stage, synchronised.
+
+    ``learn``: train a gate theta per (cell, stretch), initialized from
+    the cell's best fixed policy at that stretch, and add a ``"learned"``
+    field per stretch; the learned theta is kept only where its hard
+    evaluation improves on that fixed policy.  Only the
+    ``earliest_finish`` rule of the fixed grid is comparable.
+    ``meta["seconds"]`` holds the wall time of each stage, synchronised;
+    with ``learn``, ``meta["learn_step_seconds"]`` each training step's.
     """
+    if learn is not None and learn.machine_rule != "earliest_finish":
+        # The fixed grid and its greedy baseline are earliest_finish; a
+        # differently-ruled learned policy would misreport savings.
+        raise ValueError(
+            "sweep_structure(learn=...) compares against the "
+            "earliest_finish fixed grid; train other machine rules "
+            "directly via repro_torch.learn.train_gate")
     dev = resolve_device(device)
     stages = Stages(dev)
     with stages("build"):
@@ -169,6 +187,13 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
                                         cfg1=spec.sa, cfg2=spec.sa)
         off_sav = bires.carbon_savings.cpu().numpy()              # [B]
 
+    learned_by_cell: dict[int, dict] = {}
+    step_seconds: dict[str, list] = {}
+    if learn is not None:
+        with stages("learn"):
+            learned_by_cell, step_seconds = _learn_cells(
+                spec, sb, res, base.carbon, sav, th, wi, sx, learn, dev)
+
     mask = mask.cpu().numpy()
     rows = []
     for ci, cell in enumerate(spec.cells):
@@ -196,6 +221,8 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
         if offline:
             row["offline_bound_savings_pct"] = round(
                 100 * float(off_sav[sel].mean()), 3)
+        if learn is not None:
+            row["learned"] = learned_by_cell[ci]
         rows.append(row)
 
     meta = {
@@ -216,7 +243,96 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
         "device": str(dev),
         "seconds": stages.seconds,
     }
+    if learn is not None:
+        meta["learn"] = dict(learn._asdict())
+        meta["learn_step_seconds"] = step_seconds
     return rows, meta
+
+
+def _learn_cells(spec: SweepSpec, sb: SweepBatch, res, base_carbon, sav,
+                 th, wi, sx, learn: LearnConfig, dev: torch.device
+                 ) -> tuple[dict, dict]:
+    """The ``learn=`` branch of :func:`sweep_structure`: per stretch, one
+    training run over every cell's group from the cells' best fixed
+    policies, then one hard evaluation.  Returns the ``"learned"`` field
+    of each cell and each stretch's training step walls."""
+    n_cells = len(spec.cells)
+    cell_idx = [np.where(sb.cell_of == ci)[0] for ci in range(n_cells)]
+    # The greedy baseline was dispatched by the sweep: reuse it.
+    greedy_ref = (res.greedy_makespan, base_carbon)
+    learned: dict[int, dict] = {}
+    step_seconds: dict[str, list] = {}
+    for sx_val in spec.stretches:
+        # Best fixed policy at this stretch per cell: the learner's init,
+        # and the fallback where training does not improve on it.
+        pol = np.where(np.isclose(sx, float(sx_val)))[0]
+        theta0 = np.zeros(n_cells, np.float32)
+        window0 = np.zeros(n_cells, np.int32)
+        fixed_best = np.zeros(n_cells)
+        for ci in range(n_cells):
+            psav = sav[np.ix_(cell_idx[ci], pol)].mean(axis=0)
+            j = pol[int(psav.argmax())]
+            theta0[ci], window0[ci] = th[j], wi[j]
+            fixed_best[ci] = psav.max()
+        wins = window0[sb.cell_of]
+        tr = train_gate(sb.batch, sb.intensity, sb.cum, sb.cell_of, wins,
+                        float(sx_val), theta0, cfg=learn,
+                        baseline=greedy_ref, device=dev)
+        step_seconds[str(float(sx_val))] = tr.step_seconds
+        theta_l = tr.theta.cpu().numpy()
+        s_l = evaluate_theta(sb.batch, sb.intensity, sb.cum,
+                             theta_l[sb.cell_of], wins, float(sx_val),
+                             baseline=greedy_ref, device=dev)[0]
+        s_l = s_l.cpu().numpy()
+        for ci in range(n_cells):
+            lsav = float(s_l[cell_idx[ci]].mean())
+            improved = lsav > float(fixed_best[ci]) + 1e-12
+            learned.setdefault(ci, {})[str(float(sx_val))] = {
+                "theta": round(float(theta_l[ci] if improved
+                                     else theta0[ci]), 4),
+                "init_theta": round(float(theta0[ci]), 4),
+                "window": int(window0[ci]),
+                "savings_pct": round(
+                    100 * max(lsav, float(fixed_best[ci])), 3),
+                "trained_savings_pct": round(100 * lsav, 3),
+                "fixed_best_savings_pct": round(
+                    100 * float(fixed_best[ci]), 3),
+                "improved": bool(improved),
+            }
+    return learned, step_seconds
+
+
+def learned_summary(rows: list[dict]) -> tuple[dict, bool]:
+    """Learned vs best-fixed savings per family x stretch.
+
+    Returns ``(summary, acceptance)``: per family and stretch the mean
+    learned and mean best-fixed savings over cells (the same stretch
+    budget for both), and whether the learned policy is ``>=`` the fixed
+    grid everywhere.
+    """
+    fams: dict = {}
+    for r in rows:
+        for sx_key, cell in r.get("learned", {}).items():
+            d = fams.setdefault(r["family"], {}).setdefault(
+                sx_key, {"learned": [], "fixed": [], "improved": 0})
+            d["learned"].append(cell["savings_pct"])
+            d["fixed"].append(cell["fixed_best_savings_pct"])
+            d["improved"] += int(cell["improved"])
+    out: dict = {}
+    ok = True
+    for fam, by_sx in sorted(fams.items()):
+        out[fam] = {}
+        for sx_key, d in sorted(by_sx.items()):
+            lm = float(np.mean(d["learned"]))
+            fm = float(np.mean(d["fixed"]))
+            ok = ok and lm >= fm - 1e-9
+            out[fam][sx_key] = {
+                "learned_savings_pct": round(lm, 3),
+                "fixed_best_savings_pct": round(fm, 3),
+                "improved_cells": int(d["improved"]),
+                "cells": len(d["learned"]),
+            }
+    return out, bool(ok)
 
 
 def trend_summary(rows: list[dict]) -> dict:

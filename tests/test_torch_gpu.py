@@ -610,3 +610,90 @@ def test_stream_tiny_banded_card_equals_cpu(cuda):
     forecasts, the K x E thresholds and every dispatch match the CPU's."""
     _stream_card_equals_cpu(cuda, "poisson", False, forecast_every=24,
                             forecast_scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The gate-policy learner: the threshold's gradient through the kernel
+# ---------------------------------------------------------------------------
+
+LEARN_GRAD_RTOL = 1e-4      # the CPU gradient-parity test's tolerance
+
+
+def test_gate_threshold_gradient_through_kernel_bitwise(cuda):
+    """At the FULL learn grid's gate shape (240 rows x 2048 epochs,
+    window 48, per-epoch theta): the kernel's thresholds and the gradient
+    of a weighted sum in theta equal the plain sorted-window path's on
+    the same card tensors, bitwise."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(18)
+    inten = torch.rand((240, 2048), generator=g, device=cuda) * 400
+    raw = torch.randn((240, 2048), generator=g, device=cuda)
+    w = torch.randn((240, 2048), generator=g, device=cuda)
+    grads = []
+    for kernel in (True, False):
+        theta = torch.sigmoid(raw).requires_grad_(True)
+        if kernel:
+            reset_launches()
+            thr = ops.gate_threshold(inten, theta, 48, 48)
+            assert LAUNCHES["gate_quantile"] == 1
+        else:
+            sv, n = online_torch.sorted_windows(inten, 48, 48)
+            thr = online_torch.quantile_threshold(sv, n, theta)
+        (thr * w).sum().backward()
+        grads.append((thr.detach(), theta.grad))
+    (t_k, g_k), (t_p, g_p) = grads
+    assert _same_bits(t_k, t_p)
+    assert _same_bits(g_k, g_p)
+
+
+def test_learn_tiny_golden_on_card(cuda):
+    import json
+    import os
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "learn_tiny.json")) as f:
+        golden = json.load(f)["learn_tiny"]
+    reset_launches()
+    got = bench.run_learn_tiny(cuda)
+    # one launch per training step and one for the hard evaluation
+    assert LAUNCHES["gate_quantile"] == bench.LEARN_TINY["steps"] + 1
+    assert got["families"] == golden["families"]
+    for key, rtol, atol in (("loss_curve", 1e-3, 2e-4),
+                            ("final_theta", 1e-3, 2e-3),
+                            ("learned_savings_pct", 1e-4, 2e-3)):
+        np.testing.assert_allclose(got[key], golden[key], rtol=rtol,
+                                   atol=atol, err_msg=key)
+
+
+def test_gate_loss_backward_card_equals_cpu(cuda):
+    """One training step's per-row gradients on the tiny run's inputs,
+    card against CPU, at the gradient-parity tolerance."""
+    from repro_torch.learn import LearnConfig
+    from repro_torch.learn import train as ttrain
+    from repro_torch.core.solvers.online_torch import stretch_budget
+
+    raw = torch.tensor([[0.3, 0.0], [-0.4, 0.0]])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        batch, inten, cum, group, window = bench.learn_tiny_inputs(dev)
+        inten = torch.as_tensor(inten, device=dev)
+        cum = torch.as_tensor(cum, device=dev)
+        ms0, bc = ttrain.greedy_reference(batch, cum, inten.shape[-1])
+        B = inten.shape[0]
+        g, aux = ttrain.per_row_grads(
+            raw.to(dev), torch.as_tensor(group, device=dev),
+            lambda rows: ttrain.per_row_loss(
+                rows, torch.tensor(0.3, device=dev), batch, cum, inten,
+                torch.as_tensor(window, device=dev), 48,
+                torch.zeros_like(inten), stretch_budget(1.5, ms0),
+                torch.clamp_min(bc, 1e-6),
+                torch.clamp_min(ms0.to(torch.float32), 1.0),
+                torch.tensor(1.0 / B, device=dev), LearnConfig(),
+                inten.shape[-1]))
+        out[dev.type] = (g.cpu(), [x.cpu() for x in aux])
+    g_card, g_cpu = out["cuda"][0], out["cpu"][0]
+    assert bool((g_cpu != 0).any())
+    np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(),
+                               rtol=LEARN_GRAD_RTOL,
+                               atol=1e-6 * float(g_cpu.abs().max()))
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)

@@ -7,6 +7,9 @@
   calling one with no ``device`` raises instead of running on the CPU.
 * A kernel's built library is named by its source, the shared headers and
   the flags, so editing any of them rebuilds it.
+* The kernels are forward-only: each entry refuses an input that requires
+  grad, on every device, while ``ops.gate_threshold`` keeps theta's
+  gradient through its lerp.
 """
 import ast
 import pathlib
@@ -17,7 +20,12 @@ import torch
 from repro_torch import bench, configs
 from repro_torch.core.solvers import TorchDraws, online_torch
 from repro_torch.core.solvers.rolling import solve_mpc_batch
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gate_quantile import gate_quantile_stats
+from repro_torch.kernels.schedule_eval import schedule_delta
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.learn import LearnConfig, evaluate_theta, train_gate
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.scenarios import sweep_structure
@@ -67,7 +75,13 @@ def test_guard_sees_the_whole_port():
             port / "forecast" / "models.py",
             port / "stream" / "__init__.py",
             port / "stream" / "arrivals.py",
-            port / "stream" / "engine.py"} <= set(PORT_FILES)
+            port / "stream" / "engine.py",
+            port / "learn" / "__init__.py",
+            port / "learn" / "relax.py",
+            port / "learn" / "loss.py",
+            port / "learn" / "train.py",
+            port / "optim" / "__init__.py",
+            port / "optim" / "adamw.py"} <= set(PORT_FILES)
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -173,3 +187,97 @@ def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("k") == second
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path("k") != second
+
+
+def _learn_inputs():
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=2), "cpu")
+    inten = torch.full((2, cum.shape[-1] - 1), 100.0)
+    return batch, inten, cum, [0, 1], [8, 8]
+
+
+def test_train_gate_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    batch, inten, cum, group, window = _learn_inputs()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_gate(batch, inten, cum, group, window, 1.5, [0.5, 0.5],
+                   LearnConfig(steps=1))
+
+
+def test_evaluate_theta_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    batch, inten, cum, _, window = _learn_inputs()
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_theta(batch, inten, cum, [0.5, 0.5], window, 1.5)
+
+
+def test_learned_gate_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep_structure(bench.structure_spec(tiny=True), offline=False,
+                        learn=LearnConfig(steps=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_learned_gate(bench.structure_spec(tiny=True), steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--only", "learned_gate", "--instances", "1"])
+
+
+def _kernel_calls():
+    """Each kernel entry with small CPU inputs, as (name, fn, inputs)."""
+    g = torch.Generator().manual_seed(0)
+    rows = torch.rand((2, 16), generator=g)
+    gate = (rows, torch.full((2, 16), 0.5), torch.tensor([4, 8],
+                                                          dtype=torch.int32))
+    start = torch.zeros((1, 2, 3), dtype=torch.int32)
+    q = torch.rand((1, 2, 8, 32), generator=g)
+    kv = torch.rand((1, 1, 8, 32), generator=g)
+    x = torch.rand((1, 8, 2, 4), generator=g)
+    dt = torch.rand((1, 8, 2), generator=g)
+    A = -torch.rand(2, generator=g)
+    bc = torch.rand((1, 8, 1, 4), generator=g)
+    return [
+        ("gate_quantile", lambda a, t, w: gate_quantile_stats(a, t, w, 8),
+         list(gate), (0, 1)),
+        ("schedule_eval", schedule_delta,
+         [start, start + 1, torch.rand((1, 10), generator=g)], (2,)),
+        ("flash_attention", flash_attention, [q, kv, kv.clone()], (0, 1, 2)),
+        ("ssd_scan", lambda *a: ssd_scan(*a, chunk=4),
+         [x, dt, A, bc, bc.clone()], (0, 1, 2, 3, 4)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4),
+                         ids=["gate_quantile", "schedule_eval",
+                              "flash_attention", "ssd_scan"])
+def test_kernel_entries_refuse_inputs_that_require_grad(case):
+    """On the card a kernel's output has no autograd history, so every
+    entry raises where a gradient would be lost, on the CPU alike; under
+    no_grad the same inputs run."""
+    name, fn, inputs, float_args = _kernel_calls()[case]
+    fn(*inputs)
+    for i in float_args:
+        args = list(inputs)
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(ValueError, match=f"{name}: the kernel is "
+                           "forward-only"):
+            fn(*args)
+        with torch.no_grad():
+            fn(*args)
+
+
+def test_gate_threshold_keeps_theta_gradient():
+    """``ops.gate_threshold`` detaches theta for the selection and keeps
+    it live in the lerp: its gradient is the plain path's, bitwise."""
+    g = torch.Generator().manual_seed(1)
+    inten = torch.rand((3, 40), generator=g) * 100
+    theta = torch.rand((3, 40), generator=g).requires_grad_(True)
+    w = torch.rand((3, 40), generator=g)
+    (ops.gate_threshold(inten, theta, 12, 12) * w).sum().backward()
+    got = theta.grad.clone()
+    theta.grad = None
+    sv, n = online_torch.sorted_windows(inten, 12, 12)
+    (online_torch.quantile_threshold(sv, n, theta) * w).sum().backward()
+    assert torch.equal(got.view(torch.int32), theta.grad.view(torch.int32))
+    assert bool((got != 0).any())
