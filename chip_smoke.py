@@ -111,7 +111,23 @@ non-zero exit code if it fails:
     evaluation): every schedule complete and validator-clean, learned >=
     fixed everywhere, the fixed-grid fields equal to ``BENCH_learn.json``'s
     within its rounding; each step's wall, and one training step under
-    ``torch.profiler`` (the card's kernels only).
+    ``torch.profiler`` (the card's kernels only);
+15. cluster — ``schedule_delta`` at the cluster executor's shapes (the
+    flagship day of seed 3: one instance, a plan's [64, T] and a
+    re-solve's [32, T] populations, H = 2000) bitwise and timed; then
+    ``bench.run_cluster`` (the flagship scenario of
+    ``examples/cluster_sim.py``) cut to two days, seeds 3-4, launch counts
+    read around it (``schedule_eval`` in every plan's and re-solve's phase
+    2): every plan validator-clean, the clean run equal to the plan's
+    makespan and within rel 1e-3 of its carbon, the failure run one
+    re-solve (validated in-line) within twice the plan's makespan, the
+    straggler run no re-solve and under three times the plan's makespan,
+    and at least one of the two straggler runs a speculative copy (a copy
+    needs an idle machine at the time, which depends on the plan); one
+    plan under
+    ``torch.profiler``; and seed 3's day on the CPU and on the card, both
+    fed the CPU generator's draws: the same plan, the three reports' ints
+    equal and floats within rtol 1e-6.
 
 The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches: the main path's), the card's name and
@@ -771,17 +787,6 @@ def reference_phase(dev) -> None:
                                           solve_bilevel_batch)
     from repro_torch.core.validate import total_violations
 
-    class Moved:
-        """Draws made on the CPU, handed over on ``device``."""
-
-        def __init__(self, device):
-            self.src = TorchDraws(7, "cpu")
-            self.device = device
-
-        def __getattr__(self, kind):
-            fn = getattr(self.src, kind)
-            return lambda *a: fn(*a).to(self.device)
-
     setup = bench.BenchSetup(n_jobs=4, k_tasks=3, n_machines=3, instances=6,
                              stretch=1.5, seed=5)
     cfg = SAConfig(pop=16, iters=12, migrate_every=5)
@@ -798,7 +803,7 @@ def reference_phase(dev) -> None:
         swept = decoder.timing_sweep(b, dec.start, dec.assign, cum.to(d),
                                      deadline.to(d), cfg.sweeps)
         fit = common.population_fitness(*args, "carbon", "fixed", cfg.sweeps)
-        sol = solve_bilevel_batch(b, cum.to(d), Moved(d),
+        sol = solve_bilevel_batch(b, cum.to(d), common.HostDraws(7, d),
                                   stretch=setup.stretch, cfg1=cfg)
         for name, r in (("baseline", sol.baseline),
                         ("optimized", sol.optimized)):
@@ -2075,6 +2080,182 @@ def serve_reference_phase(dev) -> None:
           flush=True)
 
 
+CLUSTER_DAYS = 2                # the cluster cell cut to two days (seeds 3-4)
+CLUSTER_CPU_RTOL = 1e-6         # card vs CPU: the reports' floats
+
+
+def cluster_kernel_phase(dev) -> None:
+    """schedule_delta at the cluster's shapes, bitwise against its plain
+    version, and timed: seed 3's day, one instance (B = 1) with its
+    2001-entry ``cum``, the plan's population [64, T] and a re-solve's
+    [32, T]; starts over the window and its overrun, durations of the
+    instance's own machines."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.cluster.executor import PLAN_SA, RESOLVE_SA
+    from repro_torch.kernels.ref import schedule_delta_ref
+    from repro_torch.kernels.schedule_eval import schedule_delta
+
+    _, p, cum = bench.cluster_inputs(bench.CLUSTER_FIRST_SEED, dev)
+    cum = torch.as_tensor(cum, dtype=torch.float32, device=dev)
+    H = cum.numel() - 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    flush = l2_flush(dev)
+    for label, pop in (("plan", PLAN_SA.pop), ("re-solve", RESOLVE_SA.pop)):
+        shape = (1, pop, p.T)
+        start = torch.randint(-3, H + 6, shape, generator=g, device=dev,
+                              dtype=torch.int32)
+        m = torch.randint(0, p.M, shape, generator=g, device=dev)
+        dur = torch.gather(p.dur.expand(1, pop, p.T, p.M), -1,
+                           m[..., None])[..., 0].contiguous()
+        c = cum[None].contiguous()
+        out = schedule_delta(start, dur, c)
+        ref = schedule_delta_ref(start, dur, c)
+        torch.cuda.synchronize()
+        check(same_bits(out, ref), f"schedule_delta != schedule_delta_ref at "
+              f"the cluster {label} shape {shape}, H={H}")
+        ms = time_cuda(lambda: schedule_delta(start, dur, c), KERNEL_REPS,
+                       flush)
+        plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, c),
+                             KERNEL_REPS, flush)
+        moved = start.numel() * 12 + c.numel() * 4
+        print(f"kernel schedule_delta cluster {label} shape {shape} (H={H}): "
+              f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
+              f"flushed), plain {plain_ms:.4f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved / 1e3:.1f} kB"
+              " at 3.35 TB/s)", flush=True)
+        print_device_ms(f"schedule_delta cluster {label} shape",
+                        lambda: schedule_delta(start, dur, c),
+                        "schedule_delta")
+
+
+def cluster_days_differ(cpu: dict, card: dict, rtol: float) -> list:
+    """Where two ``bench.cluster_day`` records part: the plan's starts,
+    assignments and makespan and every report's ints exactly, their
+    floats within ``rtol``."""
+    import numpy as np
+    out = []
+    for f in ("start", "assign"):
+        if not np.array_equal(cpu[f], card[f]):
+            out.append(f"plan {f}: {cpu[f].tolist()} vs {card[f].tolist()}")
+    if cpu["plan"]["makespan"] != card["plan"]["makespan"]:
+        out.append(f"plan makespan {cpu['plan']['makespan']} vs "
+                   f"{card['plan']['makespan']}")
+    for run in ("clean", "failure", "straggler"):
+        for k, a in cpu[run].items():
+            b = card[run][k]
+            if k.endswith("seconds"):
+                continue
+            if isinstance(a, int):
+                ok = a == b
+            else:
+                ok = bool(np.isclose(b, a, rtol=rtol, atol=0.0))
+            if not ok:
+                out.append(f"{run} {k}: CPU {a} vs card {b}")
+    return out
+
+
+def cluster_path(dev) -> dict:
+    """The cluster cell cut to two days (seeds 3-4) through
+    ``bench.run_cluster``, launch counts read around it, held to the
+    reference test's invariants; one plan under ``torch.profiler``; then
+    seed 3's day on the CPU and on the card, both fed the CPU generator's
+    draws: the same plan and the same three reports."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.cluster.executor import (PLAN_SA, RESOLVE_SA,
+                                              ClusterExecutor)
+    from repro_torch.core.solvers.common import HostDraws
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    seed = bench.CLUSTER_FIRST_SEED
+    reset_launches()
+    rec = bench.run_cluster(CLUSTER_DAYS, dev)
+    launches = dict(LAUNCHES)
+
+    def sa_launches(cfg):       # phase 2: init + iterations + migrations
+        return 1 + cfg.iters + cfg.iters // cfg.migrate_every
+
+    n_resolves = sum(d["failure"]["n_resolves"] for d in rec["days"])
+    want = (CLUSTER_DAYS * sa_launches(PLAN_SA)
+            + n_resolves * sa_launches(RESOLVE_SA))
+    check(launches.get("schedule_eval", 0) == want,
+          f"schedule_eval launched {launches.get('schedule_eval', 0)} times "
+          f"on the cluster path, expected {want} (phase 2 of each plan and "
+          "each re-solve)")
+    for line in bench.cluster_lines(rec["days"][0]):
+        print(f"cluster path: {line}", flush=True)
+    for d in rec["days"]:
+        ex_s = sum(d[r]["seconds"] for r in ("clean", "failure",
+                                             "straggler"))
+        print(f"cluster path: seed {d['seed']} (T={d['T']}): plan "
+              f"{d['plan']['seconds']:.3f} s, re-solve "
+              f"{[round(x, 4) for x in d['failure']['resolve_seconds']]} s, "
+              f"executions {ex_s:.4f} s (clean "
+              f"{d['clean']['seconds']:.4f}, failure "
+              f"{d['failure']['seconds']:.4f}, straggler "
+              f"{d['straggler']['seconds']:.4f}); makespans plan "
+              f"{d['plan']['makespan']}, failure "
+              f"{d['failure']['achieved_makespan']} (restarts "
+              f"{d['failure']['n_restarts']}), straggler "
+              f"{d['straggler']['achieved_makespan']} (copies "
+              f"{d['straggler']['n_speculative']}); plan start "
+              f"{d['start'].tolist()}, assign {d['assign'].tolist()}",
+              flush=True)
+    for d in rec["days"]:
+        plan, day = d["plan"], f"cluster seed {d['seed']}"
+        clean, fail, slow = d["clean"], d["failure"], d["straggler"]
+        check(clean["achieved_makespan"] == plan["makespan"]
+              and abs(clean["achieved_carbon"] - plan["carbon"])
+              <= 1e-3 * abs(plan["carbon"])
+              and clean["n_resolves"] == clean["n_restarts"] == 0,
+              f"{day}: the clean run {clean} does not reproduce the plan "
+              f"{plan}")
+        check(fail["n_resolves"] == 1 and fail["recovery_overhead"] < 1.0,
+              f"{day}: the failure run {fail}")
+        check(slow["n_resolves"] == 0
+              and slow["achieved_makespan"] < 3 * plan["makespan"],
+              f"{day}: the straggler run {slow}")
+    # A copy needs an idle live machine when the straggler crosses its
+    # threshold, so whether a day issues one depends on its plan (ROADMAP
+    # Queue 3 item 9).
+    check(any(d["straggler"]["n_speculative"] >= 1 for d in rec["days"]),
+          "cluster: no straggler run issued a speculative copy")
+    print(f"cluster path: {len(rec['days'])} days in {rec['seconds']:.3f} s; "
+          "stages " + json.dumps(rec["seconds_by_stage"]) + "; launches "
+          + json.dumps(launches), flush=True)
+
+    _, p, cum = bench.cluster_inputs(seed, dev)
+    ex = ClusterExecutor(p, cum, stretch=bench.CLUSTER["stretch"],
+                         seed=seed, device=dev)
+    ex.plan()
+    profile_kernels("one cluster plan (seed 3, pop 64 x 60 a phase)",
+                    ex.plan)
+
+    def host_draws(device):
+        """The plan from one CPU generator, the re-solves from another."""
+        resolve = HostDraws(seed + 1, device)
+        return lambda kind: HostDraws(seed, device) if kind == "plan" \
+            else resolve
+
+    t0 = time.perf_counter()
+    cpu = bench.cluster_day(seed, "cpu", draws=host_draws("cpu"))
+    card = bench.cluster_day(seed, dev, draws=host_draws(dev))
+    check(cpu["failure"]["n_resolves"] == 1,
+          "cluster card vs CPU: the failure run made no re-solve")
+    diff = cluster_days_differ(cpu, card, CLUSTER_CPU_RTOL)
+    check(not diff, "cluster card vs CPU on the same draws: "
+          + "; ".join(diff))
+    print(f"cluster card vs CPU: seed {seed}'s day on the CPU generator's "
+          "draws (the plan and one re-solve): plan equal, all three"
+          f" reports' ints equal, floats within rtol {CLUSTER_CPU_RTOL} "
+          f"(CPU plan {cpu['plan']['seconds']:.3f} s, re-solve "
+          f"{cpu['failure']['resolve_seconds'][0]:.3f} s; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"launches": launches, "seconds": rec["seconds"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2125,10 +2306,12 @@ def main() -> int:
     stream = stream_path(dev, knobs, rate, service)
     learn_gate_phase(dev)
     learn = learn_path(dev)
+    cluster_kernel_phase(dev)
+    cluster = cluster_path(dev)
 
     paths = {"main": main, "online": online, "serve": serve,
              "forecast": forecast, "structure": structure, "stream": stream,
-             "learn": learn}
+             "learn": learn, "cluster": cluster}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

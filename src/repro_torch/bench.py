@@ -15,7 +15,11 @@ size x server count x fleet; the ``learned_gate`` cell
 cell and stretch by gradient and sets it beside the fixed grid; the
 ``stream`` cell
 (``benchmarks/stream_serve.py``) streams arriving DAG jobs through the
-lane-pool engine at calibrated loads, in both fleet modes.  The same
+lane-pool engine at calibrated loads, in both fleet modes; the
+``cluster`` cell runs the reference's flagship scenario
+(``examples/cluster_sim.py``): a day of ML batch jobs planned by the
+bi-level carbon solver, then executed clean, through a machine failure
+(elastic re-solve) and with a straggler (speculative copy).  The same
 seeds give the same instances and carbon windows as the reference's
 harness.
 
@@ -24,6 +28,7 @@ harness.
     python -m repro_torch.bench --only forecast,structure
     python -m repro_torch.bench --only stream        # FULL, both fleet modes
     python -m repro_torch.bench --only learned_gate  # FULL, 150 steps
+    python -m repro_torch.bench --only cluster       # 8 days, seeds 3-10
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -42,7 +47,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.carbon import synthesize
+from repro_torch.cluster.executor import ClusterExecutor, FaultPlan
+from repro_torch.cluster.workloads import (make_cluster_instance,
+                                           sample_daily_batch)
+from repro_torch.core.carbon import sample_window, synthesize
 from repro_torch.core.instance import (Instance, PackedInstance,
                                        generate_instance, pack, stack_packed)
 from repro_torch.core.objectives import evaluate, makespan
@@ -53,7 +61,7 @@ from repro_torch.core.solvers.online_torch import (dirty_mask,
                                                    simulate_online,
                                                    sweep_policies)
 from repro_torch.core.solvers.rolling import MPCConfig, solve_mpc_batch
-from repro_torch.core.validate import total_violations
+from repro_torch.core.validate import assert_feasible_np, total_violations
 from repro_torch.device import (DEFAULT_DEVICE, Stages, resolve_device,
                                 synchronize)
 from repro_torch.forecast import (day_ahead_dirty_mask, n_replans,
@@ -1064,6 +1072,151 @@ def stream_serve(instances, device):
             for r in rec["cells"]]
 
 
+# ---------------------------------------------------------------------------
+# The cluster cell (examples/cluster_sim.py): a day of ML batch jobs on the
+# modeled fleet, planned, then executed clean, through a machine failure
+# and with a straggler.
+# ---------------------------------------------------------------------------
+
+# The reference example's defaults, one day per seed.
+CLUSTER = dict(n_jobs=6, region="AU-SA", days=30, horizon=2000,
+               stretch=1.5, fail_machine=2, straggle_task=1,
+               straggle_factor=3.0)
+CLUSTER_FIRST_SEED = 3
+CLUSTER_DAYS = 8
+
+
+def _report(rep, seconds: float) -> dict:
+    return {**dataclasses.asdict(rep),
+            "recovery_overhead": rep.recovery_overhead, "seconds": seconds}
+
+
+def cluster_inputs(seed: int, device: str | torch.device = DEFAULT_DEVICE
+                   ) -> tuple[list, PackedInstance, np.ndarray]:
+    """A day's batch, its packed instance on ``device`` and the carbon
+    window's cumulative trace, from ``np.random.default_rng(seed)`` in the
+    example's order."""
+    k = CLUSTER
+    rng = np.random.default_rng(seed)
+    specs = sample_daily_batch(rng, n_jobs=k["n_jobs"])
+    p = pack(make_cluster_instance(specs, seed=seed),
+             device=resolve_device(device))
+    trace = synthesize(k["region"], days=k["days"])
+    return specs, p, sample_window(trace, rng, k["horizon"]).cumulative()
+
+
+def cluster_day(seed: int, device: str | torch.device = DEFAULT_DEVICE,
+                draws=None) -> dict:
+    """One day of the flagship scenario on ``device``: the plan
+    (validator-checked), then a clean execution, machine 2 failing at a
+    third of the makespan and a 3x straggler on task 1, on one
+    :class:`ClusterExecutor` (``draws`` is its seam).  Walls are
+    synchronised; ``failure["resolve_seconds"]`` lists each re-solve's."""
+    dev = resolve_device(device)
+    k = CLUSTER
+    specs, p, cum = cluster_inputs(seed, dev)
+    ex = ClusterExecutor(p, cum, stretch=k["stretch"], seed=seed,
+                         draws=draws, device=dev)
+
+    def timed(fn, *args):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    plan, plan_s = timed(ex.plan)
+    assert_feasible_np(p, plan["start"], plan["assign"], ctx="cluster plan")
+    fault = FaultPlan(fail_machine=k["fail_machine"],
+                      fail_epoch=plan["makespan"] // 3)
+    out = {"seed": seed, "T": p.T, "M": p.M,
+           "specs": [dataclasses.asdict(s) for s in specs],
+           "plan": {"makespan": plan["makespan"], "carbon": plan["carbon"],
+                    "seconds": plan_s},
+           "start": plan["start"], "assign": plan["assign"]}
+    out["clean"] = _report(*timed(ex.execute, plan))
+    out["failure"] = {**_report(*timed(ex.execute, plan, fault)),
+                      "fail_epoch": fault.fail_epoch,
+                      "resolve_seconds": list(ex.resolve_seconds)}
+    out["straggler"] = _report(*timed(
+        ex.execute, plan, FaultPlan(straggle_task=k["straggle_task"],
+                                    straggle_factor=k["straggle_factor"])))
+    return out
+
+
+def cluster_lines(day: dict) -> list[str]:
+    """The reference example's printout for one day."""
+    k = CLUSTER
+    plan, clean, f, slow = (day["plan"], day["clean"], day["failure"],
+                            day["straggler"])
+    lines = ["today's batch:"] + [
+        f"  {s['template']:18s} {s['arch']:14s} {s['n_steps']:4d} steps, "
+        f"arrives epoch {s['arrival']}" for s in day["specs"]]
+    lines += [
+        f"carbon-aware plan (S={k['stretch']}): makespan "
+        f"{plan['makespan']} epochs, carbon {plan['carbon']:,.0f} gCO2",
+        f"clean execution : makespan {clean['achieved_makespan']}, carbon "
+        f"{clean['achieved_carbon']:,.0f} gCO2 "
+        f"(overhead {100 * clean['recovery_overhead']:.1f}%)",
+        f"with machine-{k['fail_machine']} failure @ epoch "
+        f"{f['fail_epoch']}: makespan {f['achieved_makespan']}, "
+        f"carbon {f['achieved_carbon']:,.0f} gCO2, {f['n_resolves']} "
+        f"re-solve(s), {f['n_restarts']} restart(s), overhead "
+        f"{100 * f['recovery_overhead']:.1f}%",
+        f"with a {k['straggle_factor']:g}x straggler on task "
+        f"{k['straggle_task']}: makespan {slow['achieved_makespan']}, "
+        f"{slow['n_speculative']} speculative cop(y/ies) issued"]
+    return lines
+
+
+def run_cluster(days: int = CLUSTER_DAYS,
+                device: str | torch.device = DEFAULT_DEVICE) -> dict:
+    """:func:`cluster_day` for ``days`` seeds from 3 on ``device``, with
+    the cell's wall and its split: plans, re-solves, and the host epoch
+    loop (the executions' walls less their re-solves')."""
+    dev = resolve_device(device)
+    seeds = tuple(range(CLUSTER_FIRST_SEED, CLUSTER_FIRST_SEED + days))
+    synchronize(dev)
+    t0 = time.perf_counter()
+    days = [cluster_day(s, dev) for s in seeds]
+    seconds = time.perf_counter() - t0
+    runs = ("clean", "failure", "straggler")
+    plan_s = sum(d["plan"]["seconds"] for d in days)
+    resolve_s = sum(sum(d["failure"]["resolve_seconds"]) for d in days)
+    execute_s = sum(d[r]["seconds"] for d in days for r in runs)
+    return {"bench": "cluster", "seconds": seconds, **CLUSTER,
+            "seeds": list(seeds), "days": days,
+            "seconds_by_stage": {"plan": plan_s, "resolve": resolve_s,
+                                 "epoch_loop": execute_s - resolve_s,
+                                 "other": seconds - plan_s - execute_s}}
+
+
+def cluster_row(day: dict) -> dict:
+    """One day's row: the plan and the three executions, flattened."""
+    row = {"bench": "cluster", "seed": day["seed"], "T": day["T"],
+           "plan_makespan": day["plan"]["makespan"],
+           "plan_carbon_g": day["plan"]["carbon"],
+           "plan_seconds": day["plan"]["seconds"]}
+    for run in ("clean", "failure", "straggler"):
+        for key, v in day[run].items():
+            if key not in ("planned_makespan", "planned_carbon"):
+                row[f"{run}_{key}"] = sum(v) if isinstance(v, list) else v
+    return row
+
+
+def cluster(instances, device):
+    """The flagship scenario over ``instances`` days (seeds 3, 4, ...):
+    prints the example's lines for the first day and the wall's split."""
+    rec = run_cluster(instances, device)
+    for line in cluster_lines(rec["days"][0]):
+        print(f"# {line}", flush=True)
+    print(f"# cluster: {len(rec['days'])} days in {rec['seconds']:.3f} s; "
+          "stages " + " ".join(f"{k}={v:.3f}" for k, v in
+                              rec["seconds_by_stage"].items()), flush=True)
+    return [{**cluster_row(d), "seconds": rec["seconds"]}
+            for d in rec["days"]]
+
+
 CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "fig6": (fig6, "fig6_regions"),
          "fig7": (fig7, "fig7_carbon_vs_energy"),
@@ -1073,22 +1226,24 @@ CELLS = {"fig4": (fig4, "fig4_makespan"), "fig5": (fig5, "fig5_stretch"),
          "forecast": (forecast_robustness, "forecast_robustness"),
          "structure": (structure_sweep, "structure_sweep"),
          "stream": (stream_serve, "stream_serve"),
-         "learned_gate": (learned_gate, "learned_gate")}
+         "learned_gate": (learned_gate, "learned_gate"),
+         "cluster": (cluster, "cluster")}
 
 # Instances per cell when --instances is not given: the paper's batch for
 # the forecast cell, 16 per grid cell for the structure sweep (960), 4 for
 # the learned gate (240); the stream cell runs its FULL grid above 16,
-# TINY at 16 or below.
+# TINY at 16 or below; the cluster cell counts days.
 DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16, "stream": 1000,
-                     "learned_gate": LEARN_PER_CELL}
+                     "learned_gate": LEARN_PER_CELL,
+                     "cluster": CLUSTER_DAYS}
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--instances", type=int, default=None,
                     help="instances per cell (structure: per grid cell; "
-                    "stream: <= 16 runs the TINY grid); default 16, "
-                    "forecast 1000, stream FULL")
+                    "stream: <= 16 runs the TINY grid; cluster: days); "
+                    "default 16, forecast 1000, stream FULL, cluster 8")
     ap.add_argument("--only", default=None,
                     help="comma-separated subset, e.g. fig5,table1a")
     ap.add_argument("--device", default=DEFAULT_DEVICE)

@@ -1,0 +1,20 @@
+"""deepseek-67b — [dense] 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400, llama-arch.  [arXiv:2401.02954; hf]
+"""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-67b",
+    family="dense",
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=22016,
+    vocab_size=102400,
+    act="silu_glu",
+    norm="rmsnorm",
+    pos="rope",
+    rope_theta=1e4,
+)

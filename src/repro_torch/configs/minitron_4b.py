@@ -1,0 +1,21 @@
+"""minitron-4b — [dense] 32L d_model=3072 24H (GQA kv=8) d_ff=9216
+vocab=256000, pruned nemotron (squared-ReLU MLP, no GLU).
+[arXiv:2407.14679; hf]
+"""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=9216,
+    vocab_size=256000,
+    act="relu2",
+    norm="layernorm",
+    pos="rope",
+    rope_theta=1e4,
+)

@@ -71,6 +71,29 @@ class TorchDraws:
         return -e.exponential_(generator=self.generator).log()
 
 
+class HostDraws(TorchDraws):
+    """:class:`TorchDraws` from a generator on the CPU, handed over on
+    ``device``: one seed gives the same draws on every device, so a solve
+    on the card can be held against the same solve on the CPU."""
+
+    def __init__(self, seed: int,
+                 device: str | torch.device = DEFAULT_DEVICE):
+        super().__init__(seed, "cpu")
+        self.target = resolve_device(device)
+
+    def normal(self, shape):
+        return super().normal(shape).to(self.target)
+
+    def uniform(self, shape):
+        return super().uniform(shape).to(self.target)
+
+    def randint(self, low, high, shape):
+        return super().randint(low, high, shape).to(self.target)
+
+    def gumbel(self, shape):
+        return super().gumbel(shape).to(self.target)
+
+
 class ScheduleResult(NamedTuple):
     start: torch.Tensor
     assign: torch.Tensor

@@ -81,7 +81,7 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     x = _embed_in(params, cfg, batch, decode=True)
     if cfg.pos == "sinusoidal":
         raise NotImplementedError("sinusoidal decode comes with the encdec "
-                                  "family (ROADMAP Queue 1 item 14b)")
+                                  "family (ROADMAP Queue 1 item 8)")
     caches: dict = {}
     if "k_cache" in batch:
         caches["k"], caches["v"] = batch["k_cache"], batch["v_cache"]

@@ -7,7 +7,8 @@ The counterpart of ``repro.models.families`` for the serve path:
             (outputs mean-combined, Hymba-style) -> mlp
 Parameters are stacked with a leading layer axis, as in the reference;
 :func:`stack_apply` is a Python loop over it (no scan, and no remat, which
-is training).  ``moe`` and ``encdec`` come with their families.
+is training).  ``moe``, ``encdec`` and the stub frontends come with their
+families; building a config that needs one raises.
 """
 from __future__ import annotations
 
@@ -27,7 +28,11 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: moe, "
-            "encdec and vlm wait for ROADMAP Queue 1 item 14b")
+            "encdec and vlm wait for ROADMAP Queue 1 item 8")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} ({cfg.name}) is not ported yet: the "
+            "vision and audio stubs wait for ROADMAP Queue 1 item 8")
 
 
 def stack_defs(defs, n_layers: int):

@@ -120,20 +120,12 @@ def test_solve_bilevel_batch_on_card(cuda):
     cfg = SAConfig(pop=16, iters=10, migrate_every=5)
     batch, cum = bench.paper_batch(setup, "cpu")
 
-    class Moved:
-        def __init__(self, device):
-            self.src, self.device = TorchDraws(1, "cpu"), device
-
-        def __getattr__(self, kind):
-            fn = getattr(self.src, kind)
-            return lambda *a: fn(*a).to(self.device)
-
     out = {}
     for dev in ("cpu", cuda):
         b = PackedInstance(*(f.to(dev) for f in batch))
         reset_launches()
-        r = solve_bilevel_batch(b, cum.to(dev), Moved(dev), stretch=1.5,
-                                cfg1=cfg)
+        r = solve_bilevel_batch(b, cum.to(dev), common.HostDraws(1, dev),
+                                stretch=1.5, cfg1=cfg)
         assert not total_violations(b, r.baseline.start,
                                     r.baseline.assign).any()
         assert not total_violations(b, r.optimized.start, r.optimized.assign,
@@ -697,3 +689,37 @@ def test_gate_loss_backward_card_equals_cpu(cuda):
                                atol=1e-6 * float(g_cpu.abs().max()))
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
+
+
+def test_cluster_plan_card_equals_cpu(cuda):
+    """Seed 3's flagship cluster day on the CPU and on the card, both fed
+    the CPU generator's draws: the same plan and the same three execution
+    reports (ints equal, floats within rtol 1e-6); the plan and the
+    failure's re-solve each reach the schedule_eval kernel in every
+    phase-2 fitness."""
+    from repro_torch.cluster.executor import PLAN_SA, RESOLVE_SA
+
+    def host_draws(device):
+        resolve = common.HostDraws(4, device)
+        return lambda kind: common.HostDraws(3, device) if kind == "plan" \
+            else resolve
+
+    cpu = bench.cluster_day(3, "cpu", draws=host_draws("cpu"))
+    reset_launches()
+    card = bench.cluster_day(3, cuda, draws=host_draws(cuda))
+    assert LAUNCHES["schedule_eval"] == sum(
+        1 + c.iters + c.iters // c.migrate_every
+        for c in (PLAN_SA, RESOLVE_SA))
+    for f in ("start", "assign"):
+        np.testing.assert_array_equal(card[f], cpu[f])
+    assert card["plan"]["makespan"] == cpu["plan"]["makespan"]
+    for run in ("clean", "failure", "straggler"):
+        for k, v in cpu[run].items():
+            if k.endswith("seconds"):
+                continue
+            if isinstance(v, int):
+                assert card[run][k] == v, (run, k)
+            else:
+                np.testing.assert_allclose(card[run][k], v, rtol=1e-6,
+                                           err_msg=f"{run} {k}")
+    assert card["failure"]["n_resolves"] == 1

@@ -81,7 +81,14 @@ def test_guard_sees_the_whole_port():
             port / "learn" / "loss.py",
             port / "learn" / "train.py",
             port / "optim" / "__init__.py",
-            port / "optim" / "adamw.py"} <= set(PORT_FILES)
+            port / "optim" / "adamw.py",
+            port / "cluster" / "__init__.py",
+            port / "cluster" / "energy_model.py",
+            port / "cluster" / "workloads.py",
+            port / "cluster" / "executor.py"} <= set(PORT_FILES)
+    assert {port / "configs" / f"{m.__name__.rsplit('.', 1)[1]}.py"
+            for m in configs._MODULES} <= set(PORT_FILES)
+    assert len(configs._MODULES) == 10
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -167,6 +174,29 @@ def test_stream_bench_without_device_wants_the_card():
         bench.run_stream(tiny=True)
     with pytest.raises(RuntimeError, match="cuda"):
         bench.main(["--only", "stream", "--instances", "16"])
+
+
+def test_cluster_executor_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import numpy as np
+    from repro_torch.cluster import ClusterExecutor
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=1), "cpu")
+    inst = type(batch)(*(f[0] for f in batch))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClusterExecutor(inst, cum[0].numpy().astype(np.float64))
+    ClusterExecutor(inst, cum[0], device="cpu")
+
+
+def test_cluster_bench_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_cluster(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.cluster_day(3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main(["--only", "cluster", "--instances", "1"])
 
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):

@@ -158,7 +158,7 @@ def test_unported_family_raises():
     moe = ArchConfig(name="m", family="moe", n_layers=1, d_model=8,
                      n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=16,
                      n_experts=2, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         build_model(moe, "cpu")
 
 
