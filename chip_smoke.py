@@ -127,7 +127,23 @@ non-zero exit code if it fails:
     plan under
     ``torch.profiler``; and seed 3's day on the CPU and on the card, both
     fed the CPU generator's draws: the same plan, the three reports' ints
-    equal and floats within rtol 1e-6.
+    equal and floats within rtol 1e-6;
+16. shard — the shard layer (``repro_torch.shard``), each phase's wall
+    printed beside the unsharded one: ``RowDraws`` at the structure
+    cell's SA shapes (``[960, 24, 74]`` and ``[960, 24, 74, 8]``), every
+    draw kind's rows 0:480 drawn alone bitwise the full draw's, the
+    integer kinds bitwise the CPU's, each draw timed beside
+    ``TorchDraws``'s; the FULL structure batch's offline bound through
+    ``bilevel_sharded`` at 2 shards on the one card, every field bitwise
+    the unsharded bound's, whose per-cell means are the structure path's
+    rows; the dispatch-only TINY grid at 3 shards against the unsharded
+    rows and the golden; the learn TINY golden run through
+    ``train_sharded`` / ``eval_theta_sharded`` at 2 shards against the
+    unsharded run and the golden; then a 2-process fleet on the one card
+    (this script run as ``--fleet-worker``, ranks spawned in reversed
+    order with the ``REPRO_*`` env, gloo) sweeping the TINY grid with the
+    offline bound, every rank's rows equal to one process's.  Launch
+    counts read around each sharded run.
 
 The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches: the main path's), the card's name and
@@ -141,6 +157,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1352,10 +1369,11 @@ def structure_path(dev) -> dict:
         check(not bad, f"structure TINY cell {want_row['family']}-m"
               f"{want_row['n_machines']}-{want_row['fleet']}: {bad} differ "
               "from tests/golden/structure_tiny.json")
+    tiny_s = time.perf_counter() - t0
     print(f"structure path: the dispatch-only TINY grid ({len(tiny)} cells) "
           "on the card matches tests/golden/structure_tiny.json (exact "
-          "fields equal, the rest within rtol 1e-4; "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+          f"fields equal, the rest within rtol 1e-4; {tiny_s:.1f} s)",
+          flush=True)
 
     sb = build_batch(spec, dev)
     dirty = online_torch.dirty_mask(sb.intensity, spec.thetas[0],
@@ -1365,7 +1383,9 @@ def structure_path(dev) -> dict:
                  f"({meta['instances']} x {meta['policies']} rows)",
                  lambda: online_torch.simulate_online(
                      sb.batch, dirty, 1 << 20, PROFILE_EPOCHS))
-    return {"launches": launches, "seconds": r["seconds"]}
+    return {"launches": launches, "seconds": r["seconds"], "rows": rows,
+            "meta": meta, "spec": spec, "tiny_rows": tiny,
+            "tiny_seconds": tiny_s}
 
 
 # tests/test_stream_golden.py's TINY stream (both goldens' config).
@@ -1771,7 +1791,9 @@ def learn_path(dev) -> dict:
     with open(os.path.join(ROOT, "tests", "golden", "learn_tiny.json")) as f:
         golden = json.load(f)["learn_tiny"]
     reset_launches()
+    t_tiny = time.perf_counter()
     tiny = bench.run_learn_tiny(dev)
+    tiny_s = time.perf_counter() - t_tiny
     steps = bench.LEARN_TINY["steps"]
     check(LAUNCHES.get("gate_quantile", 0) == steps + 1,
           f"learn TINY: gate_quantile launched "
@@ -1873,7 +1895,8 @@ def learn_path(dev) -> dict:
           "learn: a training step did not launch gate_quantile once")
     learn_step_card_vs_cpu(sb, baseline, dev)
     print(f"learn path: {time.perf_counter() - t0:.1f} s in all", flush=True)
-    return {"launches": launches, "seconds": rec["seconds"]}
+    return {"launches": launches, "seconds": rec["seconds"], "tiny": tiny,
+            "tiny_seconds": tiny_s}
 
 
 def learn_step_card_vs_cpu(sb, baseline, dev) -> None:
@@ -2256,6 +2279,338 @@ def cluster_path(dev) -> dict:
     return {"launches": launches, "seconds": rec["seconds"]}
 
 
+# The shard layer (rows split into blocks, one per shard): row-keyed
+# draws, then the sharded bound, sweep and learner on one card, then a
+# two-process fleet on the one card.
+SHARD_KINDS = ("bits", "uniform", "bernoulli", "randint", "normal", "gumbel")
+SHARD_INT_KINDS = ("bits", "uniform", "bernoulli", "randint")
+SHARD_BOUND_SHARDS = 2          # the FULL bound, 960 rows as 2 x 480
+SHARD_TINY_SHARDS = 3           # the TINY grid's 40 rows, padded to 42
+SHARD_LEARN_SHARDS = 2
+FLEET_PROCESSES = 2
+FLEET_TIMEOUT_S = 600
+
+
+def _row_draw(draws, kind: str, shape: tuple, T: int):
+    if kind == "bernoulli":
+        return draws.bernoulli(2.0 / T, shape)
+    if kind == "randint":
+        return draws.randint(0, T, shape)
+    return getattr(draws, kind)(shape)
+
+
+def _leaves(tree, prefix: str = "") -> list:
+    """``(name, tensor)`` of every tensor of nested NamedTuples."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return [leaf for f in tree._fields
+            for leaf in _leaves(getattr(tree, f), f"{prefix}.{f}".strip("."))]
+
+
+def row_draws_phase(dev, B: int, pop: int, T: int, M: int, seed: int
+                    ) -> None:
+    """``RowDraws`` at the structure cell's SA shapes ``[B, pop, T]`` and
+    ``[B, pop, T, M]``: every kind's first half of the rows, drawn alone,
+    bitwise the same rows of the full draw; the integer path bitwise the
+    same draw on the CPU; each draw timed beside ``TorchDraws``'s."""
+    import torch
+    from repro_torch.core.solvers.common import (RowDraws, TorchDraws,
+                                                 row_seeds)
+
+    t0 = time.perf_counter()
+    seeds = row_seeds(seed, B)
+    half = B // 2
+    times = {}
+    for shape in ((B, pop, T), (B, pop, T, M)):
+        for kind in SHARD_KINDS:
+            full = _row_draw(RowDraws(seeds, dev), kind, shape, T)
+            part = _row_draw(RowDraws(seeds[:half], dev), kind,
+                             (half,) + shape[1:], T)
+            check(same_bits(full[:half], part),
+                  f"RowDraws.{kind} at {list(shape)}: rows 0:{half} drawn "
+                  "alone differ from the full draw's")
+            if kind in SHARD_INT_KINDS:
+                cpu = _row_draw(RowDraws(seeds, "cpu"), kind, shape, T)
+                check(same_bits(full.cpu(), cpu),
+                      f"RowDraws.{kind} at {list(shape)}: the card's draw "
+                      "differs from the CPU's")
+            if kind != "bits":
+                times[f"{kind}{list(shape)}"] = [
+                    round(time_cuda(lambda: _row_draw(
+                        draws, kind, shape, T), 5), 4)
+                    for draws in (RowDraws(seeds, dev), TorchDraws(0, dev))]
+            del full, part
+    torch.cuda.synchronize(dev)
+    print(f"shard path: RowDraws at [{B}, {pop}, {T}] and [{B}, {pop}, {T}, "
+          f"{M}]: rows 0:{half} alone bitwise the full draw's for "
+          f"{', '.join(SHARD_KINDS)}; {', '.join(SHARD_INT_KINDS)} bitwise "
+          f"the CPU's ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print("shard path: ms a draw by CUDA events, [RowDraws, TorchDraws]: "
+          + json.dumps(times), flush=True)
+
+
+def shard_bound_phase(dev, structure: dict) -> dict:
+    """The FULL structure batch's offline bound (SA pop x iterations of
+    the structure spec, both phases) unsharded and through
+    ``bilevel_sharded`` at SHARD_BOUND_SHARDS shards on the one card:
+    every field bitwise; the unsharded bound is the structure path's
+    (its per-cell mean savings are the rows' ``offline_bound_savings_pct``);
+    launch counts read around each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.solvers import solve_bilevel_batch
+    from repro_torch.core.solvers.common import RowDraws, row_seeds
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.scenarios import build_batch
+    from repro_torch.shard import bilevel_sharded
+
+    spec = structure["spec"]
+    sb = build_batch(spec, dev)
+    B = int(sb.cell_of.shape[0])
+    seeds = row_seeds(spec.seed, B)
+    kw = dict(objective="carbon", stretch=spec.offline_stretch,
+              cfg1=spec.sa, cfg2=spec.sa)
+    walls, launches, out = {}, {}, {}
+    for name, fn in (
+            ("unsharded", lambda: solve_bilevel_batch(
+                sb.batch, sb.cum, RowDraws(seeds, dev), **kw)),
+            ("sharded", lambda: bilevel_sharded(
+                sb.batch, sb.cum, seeds,
+                devices=[dev] * SHARD_BOUND_SHARDS, **kw))):
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = dict(LAUNCHES)
+    want = 1 + spec.sa.iters + spec.sa.iters // spec.sa.migrate_every
+    check(launches["unsharded"].get("schedule_eval", 0) == want
+          and launches["sharded"].get("schedule_eval", 0)
+          == SHARD_BOUND_SHARDS * want,
+          f"schedule_eval launches: unsharded "
+          f"{launches['unsharded'].get('schedule_eval', 0)} (expected "
+          f"{want}), sharded {launches['sharded'].get('schedule_eval', 0)} "
+          f"(expected {SHARD_BOUND_SHARDS * want})")
+    bad = []
+    for (name, a), (_, b) in zip(_leaves(out["unsharded"]),
+                                 _leaves(out["sharded"])):
+        if not same_bits(a, b):
+            rows = (a != b).reshape(B, -1).any(-1).nonzero().flatten()
+            bad.append(f"{name} ({rows.numel()} rows, first "
+                       f"{rows[:8].tolist()})")
+    check(not bad, f"bilevel_sharded at {SHARD_BOUND_SHARDS} shards differs "
+          f"from the unsharded bound in: {'; '.join(bad)}")
+    sav = out["unsharded"].carbon_savings.cpu().numpy()
+    for ci, row in enumerate(structure["rows"]):
+        got = round(100 * float(sav[sb.cell_of == ci].mean()), 3)
+        check(got == row["offline_bound_savings_pct"],
+              f"the unsharded bound's cell {ci} savings {got} differ from "
+              f"the structure path's {row['offline_bound_savings_pct']}")
+    print(f"shard path: the FULL structure bound ({B} rows, T={sb.batch.T}, "
+          f"M={sb.batch.M}, H={sb.cum.shape[-1] - 1}, SA {spec.sa.pop} x "
+          f"{spec.sa.iters}) through bilevel_sharded at "
+          f"{SHARD_BOUND_SHARDS} shards on one card: every field bitwise "
+          f"the unsharded bound's (the structure path's, cell means equal); "
+          f"{walls['sharded']:.3f} s sharded vs {walls['unsharded']:.3f} s "
+          f"unsharded; launches {json.dumps(launches['sharded'])} vs "
+          f"{json.dumps(launches['unsharded'])}; mean savings "
+          f"{100 * float(np.mean(sav)):.3f}%", flush=True)
+    return launches["sharded"]
+
+
+def shard_tiny_phase(dev, structure: dict, learn: dict) -> dict:
+    """The dispatch-only TINY grid through ``sweep_structure(devices=...)``
+    at SHARD_TINY_SHARDS shards (40 rows padded to 42) against the
+    structure path's unsharded rows and the golden; the learn TINY golden
+    run through ``train_sharded`` / ``eval_theta_sharded`` at
+    SHARD_LEARN_SHARDS shards against the learn path's unsharded run and
+    the golden; launch counts read around each."""
+    import numpy as np
+    import torch
+    from repro_torch import bench
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.learn import LearnConfig
+    from repro_torch.scenarios import sweep_structure
+    from repro_torch.shard import eval_theta_sharded, train_sharded
+
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "structure_tiny.json")) as f:
+        golden = json.load(f)["structure_tiny"]
+    reset_launches()
+    t0 = time.perf_counter()
+    tiny, meta = sweep_structure(bench.structure_spec(tiny=True),
+                                 offline=False,
+                                 devices=[dev] * SHARD_TINY_SHARDS)
+    torch.cuda.synchronize(dev)
+    tiny_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    check(launches.get("gate_quantile", 0) == SHARD_TINY_SHARDS,
+          f"the sharded TINY sweep launched gate_quantile "
+          f"{launches.get('gate_quantile', 0)} times, expected one a shard "
+          f"({SHARD_TINY_SHARDS})")
+    check(tiny == structure["tiny_rows"],
+          "the sharded TINY grid's rows differ from the unsharded ones")
+    for got, want_row in zip(tiny, golden["cells"]):
+        bad = golden_mismatches(got, want_row)
+        check(not bad, f"sharded structure TINY cell {want_row['family']}-m"
+              f"{want_row['n_machines']}-{want_row['fleet']}: {bad} differ "
+              "from tests/golden/structure_tiny.json")
+    print(f"shard path: the dispatch-only TINY grid at {SHARD_TINY_SHARDS} "
+          f"shards on one card ({meta['instances']} rows padded to "
+          f"{-(-meta['instances'] // SHARD_TINY_SHARDS) * SHARD_TINY_SHARDS})"
+          f" equals the unsharded rows and tests/golden/structure_tiny.json;"
+          f" {tiny_s:.3f} s vs {structure['tiny_seconds']:.3f} s unsharded; "
+          f"launches {json.dumps(launches)}", flush=True)
+
+    k = bench.LEARN_TINY
+    batch, intens, cums, group, window = bench.learn_tiny_inputs(dev)
+    on = dict(devices=[dev] * SHARD_LEARN_SHARDS)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_sharded(batch, intens, cums, group, window, k["stretch"],
+                        np.full(len(k["families"]), k["theta0"], np.float32),
+                        LearnConfig(steps=k["steps"]), **on)
+    sav = eval_theta_sharded(batch, intens, cums,
+                             res.theta[torch.as_tensor(group, device=dev)],
+                             window, k["stretch"], **on)[0].cpu().numpy()
+    learn_s = time.perf_counter() - t0
+    learn_launches = dict(LAUNCHES)
+    want = SHARD_LEARN_SHARDS * (k["steps"] + 1)
+    check(learn_launches.get("gate_quantile", 0) == want,
+          f"the sharded tiny training launched gate_quantile "
+          f"{learn_launches.get('gate_quantile', 0)} times, expected {want} "
+          "(one a shard a step, one a shard for the evaluation)")
+    got = {"loss_curve": [round(float(v), 6) for v in res.loss_curve.cpu()],
+           "final_theta": [round(float(v), 6) for v in res.theta.cpu()],
+           "learned_savings_pct": [
+               round(100 * float(sav[group == gi].mean()), 3)
+               for gi in range(len(k["families"]))]}
+    with open(os.path.join(ROOT, "tests", "golden", "learn_tiny.json")) as f:
+        lgold = json.load(f)["learn_tiny"]
+    for key, (rtol, atol) in LEARN_GOLDEN_TOL.items():
+        check(got[key] == learn["tiny"][key],
+              f"learn TINY at {SHARD_LEARN_SHARDS} shards: {key} "
+              f"{got[key]} differs from the unsharded {learn['tiny'][key]}")
+        check(bool(np.allclose(got[key], lgold[key], rtol=rtol, atol=atol)),
+              f"learn TINY at {SHARD_LEARN_SHARDS} shards: {key} differs "
+              "from tests/golden/learn_tiny.json")
+    print(f"shard path: the learn TINY golden run at {SHARD_LEARN_SHARDS} "
+          "shards on one card (train_sharded, eval_theta_sharded) equals "
+          "the unsharded run and tests/golden/learn_tiny.json; "
+          f"{learn_s:.3f} s vs {learn['tiny_seconds']:.3f} s unsharded; "
+          f"launches {json.dumps(learn_launches)}", flush=True)
+    return {k: launches.get(k, 0) + learn_launches.get(k, 0)
+            for k in set(launches) | set(learn_launches)}
+
+
+def fleet_worker() -> int:
+    """One rank of the fleet phase (spawned by :func:`fleet_phase` with
+    the ``REPRO_*`` env): the TINY grid with the offline bound, sharded
+    over the fleet on this rank's card; its rows as the last line."""
+    sys.path.insert(0, SRC)
+    import torch
+    from repro_torch import bench, shard
+    from repro_torch.scenarios import sweep_structure
+    shard.initialize_from_env(initialization_timeout=FLEET_TIMEOUT_S)
+    t0 = time.perf_counter()
+    rows, meta = sweep_structure(bench.structure_spec(tiny=True),
+                                 offline=True,
+                                 processes=shard.process_count())
+    torch.cuda.synchronize()
+    print(json.dumps({"rows": rows, "seconds": time.perf_counter() - t0,
+                      "device": meta["device"]}), flush=True)
+    return 0
+
+
+def fleet_phase(dev) -> None:
+    """FLEET_PROCESSES ranks on the one card over gloo (this script in
+    ``--fleet-worker`` mode, spawned in reversed rank order with the
+    ``REPRO_*`` env) sweep the TINY grid with the offline bound; each
+    rank's rows must equal this process's unsharded sweep's."""
+    import socket
+    import torch
+    from repro_torch import bench
+    from repro_torch.scenarios import sweep_structure
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    single, _ = sweep_structure(bench.structure_spec(tiny=True),
+                                offline=True, device=dev)
+    torch.cuda.synchronize(dev)
+    single_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for rank in reversed(range(FLEET_PROCESSES)):
+            env = dict(os.environ, REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                       REPRO_NUM_PROCESSES=str(FLEET_PROCESSES),
+                       REPRO_PROCESS_ID=str(rank))
+            # Each rank writes to files of its own, never to a pipe that
+            # could fill while another rank is being waited on.
+            logs[rank] = (tempfile.TemporaryFile("w+"),
+                          tempfile.TemporaryFile("w+"))
+            procs[rank] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--fleet-worker"],
+                env=env, stdout=logs[rank][0], stderr=logs[rank][1],
+                text=True)
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        for rank, p in procs.items():
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"fleet rank {rank} still running after "
+                                   f"{FLEET_TIMEOUT_S} s") from None
+        outs = {}
+        for rank, files in logs.items():
+            for f in files:
+                f.seek(0)
+            outs[rank] = tuple(f.read() for f in files)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for files in logs.values():
+            for f in files:
+                f.close()
+    wall = time.perf_counter() - t0
+    ranks = {}
+    for rank, p in sorted(procs.items()):
+        out, err = outs[rank]
+        check(p.returncode == 0, f"fleet rank {rank} failed (rc="
+              f"{p.returncode}):\n{err[-3000:]}")
+        ranks[rank] = json.loads(out.strip().splitlines()[-1])
+        check(ranks[rank]["rows"] == json.loads(json.dumps(single)),
+              f"fleet rank {rank}'s TINY rows with the offline bound "
+              "differ from the single-process sweep's")
+    print(f"shard path: a {FLEET_PROCESSES}-process fleet on one card "
+          "(gloo, spawned in reversed rank order) swept the TINY grid with "
+          "the offline bound equal to the single-process sweep on every "
+          f"rank; sweep {[round(r['seconds'], 3) for r in ranks.values()]} "
+          f"s a rank ({wall:.1f} s with the processes' start) vs "
+          f"{single_s:.3f} s in one process", flush=True)
+
+
+def shard_path(dev, structure: dict, learn: dict) -> dict:
+    """The shard layer's phases: row-keyed draws, the sharded FULL bound,
+    the sharded TINY sweep and learner, the two-process fleet."""
+    t0 = time.perf_counter()
+    spec, meta = structure["spec"], structure["meta"]
+    row_draws_phase(dev, meta["instances"], spec.sa.pop, meta["pad_tasks"],
+                    meta["pad_machines"], spec.seed)
+    bound = shard_bound_phase(dev, structure)
+    tiny = shard_tiny_phase(dev, structure, learn)
+    fleet_phase(dev)
+    print(f"shard path: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return {"launches": {k: bound.get(k, 0) + tiny.get(k, 0)
+                         for k in set(bound) | set(tiny)}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2308,10 +2663,11 @@ def main() -> int:
     learn = learn_path(dev)
     cluster_kernel_phase(dev)
     cluster = cluster_path(dev)
+    sharded = shard_path(dev, structure, learn)
 
     paths = {"main": main, "online": online, "serve": serve,
              "forecast": forecast, "structure": structure, "stream": stream,
-             "learn": learn, "cluster": cluster}
+             "learn": learn, "cluster": cluster, "shard": sharded}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",
@@ -2330,6 +2686,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:] == ["--fleet-worker"]:
+            sys.exit(fleet_worker())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

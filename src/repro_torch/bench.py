@@ -29,6 +29,14 @@ harness.
     python -m repro_torch.bench --only stream        # FULL, both fleet modes
     python -m repro_torch.bench --only learned_gate  # FULL, 150 steps
     python -m repro_torch.bench --only cluster       # 8 days, seeds 3-10
+    python -m repro_torch.bench --only structure,learned_gate --devices 2
+
+``--devices N`` / ``--processes P`` shard the structure and learned_gate
+cells over the instance axis (:mod:`repro_torch.shard`): N cards (with
+``--device cpu``, N shards on the CPU), per process in a fleet of P
+processes that each run this command under the ``REPRO_*`` env
+(``python -m tests.harness --processes P --devices 1 -- python -m
+repro_torch.bench ...`` spawns them).  The numbers do not change.
 
 Prints one row per result and writes ``experiments/torch_bench/<cell>.csv``,
 each row stamped with the device name, its power limit and the torch and
@@ -72,6 +80,8 @@ from repro_torch.scenarios import (ScenarioConfig, SweepSpec, build_fleet,
                                    sample_batch, sample_job,
                                    structure_cells, sweep_structure,
                                    trend_summary)
+from repro_torch import shard
+from repro_torch.shard.batch import call_devices
 from repro_torch.stream import StreamConfig, simulate_stream
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
@@ -710,27 +720,49 @@ def structure_spec(tiny: bool = False,
 
 
 def run_structure(spec: SweepSpec,
-                  device: str | torch.device = DEFAULT_DEVICE) -> dict:
-    """The sweep on ``device``: its rows, meta (with each stage's wall
-    seconds), trend summary and synchronised wall seconds."""
-    dev = resolve_device(device)
+                  device: str | torch.device = DEFAULT_DEVICE,
+                  devices=None, processes: int | None = None) -> dict:
+    """The sweep on ``device`` (sharded with ``devices`` / ``processes``,
+    as :func:`~repro_torch.scenarios.sweep.sweep_structure`): its rows,
+    meta (with each stage's wall seconds), trend summary and synchronised
+    wall seconds."""
+    dev = call_devices(device, devices, processes)[0]
     synchronize(dev)
     t0 = time.perf_counter()
-    rows, meta = sweep_structure(spec, device=dev)
+    rows, meta = sweep_structure(spec, device=dev, devices=devices,
+                                 processes=processes)
     synchronize(dev)
     return {"rows": rows, "meta": meta, "trends": trend_summary(rows),
             "seconds": time.perf_counter() - t0}
 
 
-def structure_sweep(instances, device):
+def shard_devices(device, devices: int | None, processes: int | None):
+    """The shard layer's ``devices`` for the command line's ``--device``,
+    ``--devices N`` and ``--processes``: N cards (``None``: one card a
+    process), or N shards on a non-CUDA ``device``."""
+    if devices is None and processes is None:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return devices
+    return [dev] * (devices or 1)
+
+
+def structure_sweep(instances, device, devices=None, processes=None):
     """The full grid at ``instances`` per cell: one row per cell (scalar
     fields), savings by policy and the offline bound."""
     r = run_structure(structure_spec(instances_per_cell=instances),
-                      device=device)
+                      device=device, devices=devices, processes=processes)
+    print(f"# structure: {r['meta']['instances']} instances, "
+          f"{r['seconds']:.3f} s; stages " + " ".join(
+              f"{k}={v:.3f}" for k, v in r["meta"]["seconds"].items()),
+          flush=True)
     return [{"bench": "structure_sweep",
              **{k: v for k, v in row.items()
                 if not isinstance(v, (list, dict))},
              "instances_per_cell": r["meta"]["instances_per_cell"],
+             "devices": r["meta"]["devices"],
+             "processes": r["meta"]["processes"],
              "seconds": r["seconds"]} for row in r["rows"]]
 
 
@@ -745,7 +777,8 @@ LEARN_PER_CELL = 4              # FULL: 60 cells x 4 = 240 instances
 
 def run_learned_gate(spec: SweepSpec | None = None,
                      steps: int = FULL_LEARN.steps,
-                     device: str | torch.device = DEFAULT_DEVICE) -> dict:
+                     device: str | torch.device = DEFAULT_DEVICE,
+                     devices=None, processes: int | None = None) -> dict:
     """The structure grid with learned thetas, without the offline bound:
     per (cell, stretch) a theta trained for ``steps`` steps from the
     cell's best fixed policy (``FULL_LEARN`` otherwise), kept where its
@@ -754,15 +787,17 @@ def run_learned_gate(spec: SweepSpec | None = None,
     record (rows as ``cells``, the family x stretch summary, the
     acceptance flag) with the synchronised wall seconds and each training
     step's wall (``learn_step_seconds``, each step between two
-    synchronisations).  Raises if the learned savings fall below the
+    synchronisations).  ``devices`` / ``processes`` shard it as in
+    :func:`run_structure`.  Raises if the learned savings fall below the
     fixed grid's anywhere."""
-    dev = resolve_device(device)
+    dev = call_devices(device, devices, processes)[0]
     if spec is None:
         spec = structure_spec(instances_per_cell=LEARN_PER_CELL)
     cfg = FULL_LEARN._replace(steps=steps)
     synchronize(dev)
     t0 = time.perf_counter()
-    rows, meta = sweep_structure(spec, offline=False, learn=cfg, device=dev)
+    rows, meta = sweep_structure(spec, offline=False, learn=cfg, device=dev,
+                                 devices=devices, processes=processes)
     synchronize(dev)
     seconds = time.perf_counter() - t0
     summary, ok = learned_summary(rows)
@@ -828,13 +863,14 @@ def run_learn_tiny(device: str | torch.device = DEFAULT_DEVICE) -> dict:
     }
 
 
-def learned_gate(instances, device):
+def learned_gate(instances, device, devices=None, processes=None):
     """The FULL grid at ``instances`` per cell, 150 steps a stretch: one
     row per cell, its learned fields flattened per stretch
     (``learned_S<stretch>_*``); prints the family x stretch summary and
     the step walls."""
     rec = run_learned_gate(structure_spec(instances_per_cell=instances),
-                           device=device)
+                           device=device, devices=devices,
+                           processes=processes)
     steps = [s for v in rec["learn_step_seconds"].values() for s in v]
     print(f"# learned_gate: {len(rec['cells'])} cells x "
           f"{rec['instances_per_cell']} instances, {rec['learn']['steps']} "
@@ -858,6 +894,8 @@ def learned_gate(instances, device):
                 row[f"learned_S{sx}_{k}"] = cell[k]
         out.append({"bench": "learned_gate", **row,
                     "steps": rec["learn"]["steps"],
+                    "devices": rec["devices"],
+                    "processes": rec["processes"],
                     "seconds": rec["seconds"]})
     return out
 
@@ -1237,6 +1275,9 @@ DEFAULT_INSTANCES = {"forecast": 1000, "structure": 16, "stream": 1000,
                      "learned_gate": LEARN_PER_CELL,
                      "cluster": CLUSTER_DAYS}
 
+# The cells --devices / --processes shard (the reference harness's).
+SHARDED_CELLS = ("structure", "learned_gate")
+
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1247,23 +1288,46 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated subset, e.g. fig5,table1a")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shard the structure / learned_gate cells' "
+                    "instances over N cards (N shards with --device cpu); "
+                    "with --processes, per process (bit-exact)")
+    ap.add_argument("--processes", type=int, default=None,
+                    help="span the shards over a fleet of P processes, each "
+                    "running this command under the REPRO_* env (python -m "
+                    "tests.harness --processes P --devices 1 -- <command>)")
     args = ap.parse_args(argv)
+    # Join the fleet the REPRO_* env names, if any, before any device work.
+    shard.initialize_from_env()
     names = args.only.split(",") if args.only else list(CELLS)
     unknown = [n for n in names if n not in CELLS]
     if unknown:
         ap.error(f"unknown cells {unknown}; choose from {list(CELLS)}")
+    kw = {}
+    if args.devices is not None or args.processes is not None:
+        unsharded = [n for n in names if n not in SHARDED_CELLS]
+        if unsharded:
+            ap.error(f"--devices/--processes shard only {SHARDED_CELLS}, "
+                     f"not {unsharded}")
+        kw = {"devices": shard_devices(args.device, args.devices,
+                                       args.processes),
+              "processes": args.processes}
     stamp = device_stamp(args.device)
+    lead = shard.process_index() == 0     # one process of a fleet reports
     t0 = time.perf_counter()
     for name in names:
         fn, csv_name = CELLS[name]
         rows = fn(args.instances or DEFAULT_INSTANCES.get(name, 16),
-                  args.device)
+                  args.device, **kw)
+        if not lead:
+            continue
         for row in rows:
             print(",".join(f"{k}={v}" for k, v in {**row, **stamp}.items()),
                   flush=True)
         write_csv(csv_name, rows, stamp)
-    print(f"# total {time.perf_counter() - t0:.0f}s over {len(names)} cells",
-          flush=True)
+    if lead:
+        print(f"# total {time.perf_counter() - t0:.0f}s over {len(names)} "
+              "cells", flush=True)
     return 0
 
 

@@ -11,12 +11,16 @@ Random draws go through a *draws* object (:class:`TorchDraws` by default,
 a ``torch.Generator`` on the device).  The solvers ask it for their
 normals, Bernoulli masks, integers, Gumbel noise and uniforms in a fixed
 order, so a test can hand them the very arrays another implementation
-drew instead.
+drew instead.  :class:`RowDraws` keys every draw by its row, so a row
+solved alone draws what it draws inside any batch: the property the
+sharded solvers (:mod:`repro_torch.shard`) rest on.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Protocol, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.decoder import sgs, timing_sweep
@@ -92,6 +96,134 @@ class HostDraws(TorchDraws):
 
     def gumbel(self, shape):
         return super().gumbel(shape).to(self.target)
+
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+# Pairs of words a row's draw is laid out in, rounded up to this: the
+# float transforms then see every row at a stride of a multiple of 64
+# elements, so ATen's vectorised CPU loops treat an element alike at
+# every row position (their scalar tail may round a log or cos apart).
+_ROW_ALIGN = 64
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds: JAX's ``threefry_2x32`` block cipher.
+
+    The key ``(k0, k1)`` and counter ``(x0, x1)`` are 32-bit words held in
+    int64 tensors (or ints) that broadcast together; returns the two
+    output words, int64 in ``[0, 2**32)``.  Only add, xor and rotate: an
+    int64 add of two words cannot overflow, and ``x0`` may carry bits
+    above 32 between key injections because the low 32 bits of a sum or
+    xor never depend on them (``x1`` is masked before every rotation).
+    """
+    k2 = k0 ^ k1 ^ _KS_PARITY
+    ks = (k0, k1, k2)
+    x0 = x0 + k0
+    x1 = (x1 + k1) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & M32
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + (ks[(i + 2) % 3] + (i + 1))) & M32
+    return x0, x1
+
+
+def row_seeds(seed: int, rows: int) -> np.ndarray:
+    """``rows`` 64-bit row seeds from one integer, uint64 ``[rows]``: the
+    counterpart of ``jax.random.split(jax.random.key(seed), rows)``."""
+    return np.random.SeedSequence(seed).generate_state(rows, np.uint64)
+
+
+class RowDraws:
+    """:class:`Draws` keyed by row, counter-based (threefry-2x32).
+
+    ``seeds``: one 64-bit seed per row, ``[B]``; every draw's leading axis
+    must be those ``B`` rows.  Element ``j`` of row ``b`` in the ``c``-th
+    draw depends only on ``(seeds[b], c, j)``: it is word ``j % 2`` of
+    threefry under key ``seeds[b]`` at counter ``(c, j // 2)``.  So a row
+    draws the same whatever batch it sits in and at whatever position,
+    and on every device.  Uniforms are ``(bits >> 8) * 2**-24`` (exact);
+    Bernoulli masks and integers come from them in integer or exact float
+    arithmetic, so those three and :meth:`bits` are bitwise equal on every
+    device.  Normals (Box-Muller over a word pair) and Gumbels
+    (``-log(-log u)``, ``u`` from 23 bits on the open interval) are equal
+    wherever the device's ``log``/``cos``/``sin`` round alike.
+    """
+
+    def __init__(self, seeds, device: str | torch.device = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        s = np.asarray(seeds, dtype=np.uint64).reshape(-1)
+        self.rows = int(s.shape[0])
+        hi = (s >> np.uint64(32)).astype(np.int64)
+        lo = (s & np.uint64(M32)).astype(np.int64)
+        self._k0 = torch.as_tensor(hi, device=self.device)[:, None]
+        self._k1 = torch.as_tensor(lo, device=self.device)[:, None]
+        self.calls = 0
+
+    def _pairs(self, shape) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """This call's two words per pair, ``[B, pairs]`` each (``pairs``
+        a multiple of ``_ROW_ALIGN``), and the elements a row needs."""
+        shape = tuple(int(d) for d in shape)
+        if not shape or shape[0] != self.rows:
+            raise ValueError(f"RowDraws: a draw's leading axis must be the "
+                             f"{self.rows} rows, got shape {shape}")
+        n = math.prod(shape[1:])
+        pairs = _ROW_ALIGN * max(1, -(-n // (2 * _ROW_ALIGN)))
+        counter = torch.arange(pairs, dtype=torch.int64, device=self.device)
+        w0, w1 = threefry2x32(self._k0, self._k1, self.calls, counter)
+        self.calls += 1
+        return w0, w1, n
+
+    def _rows(self, w0: torch.Tensor, w1: torch.Tensor, n: int,
+              shape) -> torch.Tensor:
+        """Interleave a pair layout into elements and cut each row to
+        ``n``: ``[B, *shape[1:]]``."""
+        flat = torch.stack((w0, w1), -1).reshape(self.rows, -1)
+        return flat[:, :n].reshape(tuple(shape))
+
+    @staticmethod
+    def _unit(w: torch.Tensor) -> torch.Tensor:
+        return (w >> 8).to(torch.float32) * 2.0 ** -24
+
+    @staticmethod
+    def _open_unit(w: torch.Tensor) -> torch.Tensor:
+        """Uniform on (0, 1): ``(2k + 1) * 2**-24`` for 23-bit ``k``."""
+        return ((w >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+
+    def bits(self, shape) -> torch.Tensor:
+        """Raw 32-bit words, int64 ``shape``."""
+        w0, w1, n = self._pairs(shape)
+        return self._rows(w0, w1, n, shape)
+
+    def uniform(self, shape):
+        w0, w1, n = self._pairs(shape)
+        return self._rows(self._unit(w0), self._unit(w1), n, shape)
+
+    def bernoulli(self, p, shape):
+        return self.uniform(shape) < p
+
+    def randint(self, low, high, shape):
+        """``low + floor(u * (high - low))`` in integers, int64."""
+        w0, w1, n = self._pairs(shape)
+        span = int(high) - int(low)
+        pick = [low + (((w >> 8) * span) >> 24) for w in (w0, w1)]
+        return self._rows(*pick, n, shape)
+
+    def normal(self, shape):
+        """Box-Muller: a pair's two words give its two normals."""
+        w0, w1, n = self._pairs(shape)
+        r = torch.sqrt(-2.0 * torch.log(self._open_unit(w0)))
+        t = self._unit(w1) * (2.0 * math.pi)
+        return self._rows(r * torch.cos(t), r * torch.sin(t), n, shape)
+
+    def gumbel(self, shape):
+        w0, w1, n = self._pairs(shape)
+        g0, g1 = (-torch.log(-torch.log(self._open_unit(w)))
+                  for w in (w0, w1))
+        return self._rows(g0, g1, n, shape)
 
 
 class ScheduleResult(NamedTuple):

@@ -143,28 +143,44 @@ def train_opt_cfg(cfg: LearnConfig) -> AdamWConfig:
                        weight_decay=0.0, clip_norm=1.0)
 
 
+def row_loss(cfg: LearnConfig, n_epochs: int, max_window: int,
+             inv_b: torch.Tensor, row_args: tuple, temp: torch.Tensor):
+    """``rows -> per_row_loss(rows, temp, ...)`` over ``row_args``: the loss
+    function :func:`per_row_grads` differentiates for those rows."""
+    batch, cum, intensity, window, group_of, feats, budget, bc, mn = row_args
+    return lambda rows: per_row_loss(
+        rows, temp, batch, cum, intensity, window, max_window, feats,
+        budget, bc, mn, inv_b, cfg, n_epochs)
+
+
 def build_train_step(cfg: LearnConfig, opt_cfg: AdamWConfig, n_epochs: int,
                      max_window: int, inv_b: torch.Tensor,
-                     row_args: tuple) -> Callable:
+                     row_args: tuple, row_grads: Callable | None = None
+                     ) -> Callable:
     """One Adam step of the gate learner: the single copy of the update.
 
     ``row_args``: the per-row inputs ``(batch, cum, intensity, window,
     group_of, feats, budget, bc, mn)``, ``bc``/``mn`` the rows' carbon and
-    makespan norms.  ``step((params, state), k)`` returns the new
-    ``(params, state)`` and ``(loss, carbon ratio, theta)`` of step ``k``.
+    makespan norms.  ``row_grads(raw, temp)`` returns every row's gradient
+    ``[B, G, 2]`` and its ``(carbon, penalty)``, in row order; the default
+    runs :func:`per_row_grads` over the whole batch, and a sharded learner
+    runs it shard by shard and gathers the rows
+    (:mod:`repro_torch.shard.train`).  Either way the rows are summed here
+    by :func:`seq_sum`, once.  ``step((params, state), k)`` returns the
+    new ``(params, state)`` and ``(loss, carbon ratio, theta)`` of step
+    ``k``.
     """
-    batch, cum, intensity, window, group_of, feats, budget, bc, mn = row_args
-
-    def loss_fn(temp):
-        return lambda rows: per_row_loss(
-            rows, temp, batch, cum, intensity, window, max_window, feats,
-            budget, bc, mn, inv_b, cfg, n_epochs)
+    intensity, group_of, bc, mn = (row_args[2], row_args[4], row_args[7],
+                                   row_args[8])
+    if row_grads is None:
+        def row_grads(raw, temp):
+            return per_row_grads(raw, group_of, row_loss(
+                cfg, n_epochs, max_window, inv_b, row_args, temp))
 
     def step(carry, k: int):
         params, state = carry
         temp = _anneal(cfg, k, intensity.device)
-        g, (c_row, p_row) = per_row_grads(params["raw"], group_of,
-                                          loss_fn(temp))
+        g, (c_row, p_row) = row_grads(params["raw"], temp)
         grads = seq_sum(g)                               # canonical row order
         ratio = c_row / bc
         pen = p_row / mn
@@ -200,17 +216,19 @@ def run_train_scan(step: Callable, raw0: torch.Tensor,
 
 def _train(batch, intensity, cum, group_of, window, budget, base_carbon,
            ms0, feats, raw0, cfg: LearnConfig, max_window: int,
-           n_epochs: int) -> TrainResult:
+           n_epochs: int, row_grads_for: Callable | None = None
+           ) -> TrainResult:
     base_c = torch.clamp_min(base_carbon, 1e-6)
     ms_norm = torch.clamp_min(ms0.to(torch.float32), 1.0)
     inv_b = torch.tensor(1.0, dtype=torch.float32, device=intensity.device) \
         / torch.tensor(float(intensity.shape[0]), dtype=torch.float32,
                        device=intensity.device)
     opt_cfg = train_opt_cfg(cfg)
+    row_args = (batch, cum, intensity, window, group_of, feats, budget,
+                base_c, ms_norm)
     step = build_train_step(
-        cfg, opt_cfg, n_epochs, max_window, inv_b,
-        row_args=(batch, cum, intensity, window, group_of, feats, budget,
-                  base_c, ms_norm))
+        cfg, opt_cfg, n_epochs, max_window, inv_b, row_args,
+        None if row_grads_for is None else row_grads_for(row_args, inv_b))
     raw, (losses, ratios, thetas), walls = run_train_scan(
         step, raw0, opt_cfg, cfg.steps)
     return TrainResult(raw=raw, theta=torch.sigmoid(raw[:, 0]),
@@ -218,9 +236,10 @@ def _train(batch, intensity, cum, group_of, window, budget, base_carbon,
                        theta_curve=thetas, step_seconds=walls)
 
 
-def _baseline(batch, cum, n_epochs, machine_rule, baseline, dev):
+def _baseline(batch, cum, n_epochs, machine_rule, baseline, dev,
+              greedy: Callable = greedy_reference):
     if baseline is None:
-        return greedy_reference(batch, cum, n_epochs, machine_rule)
+        return greedy(batch, cum, n_epochs, machine_rule)
     ms0, base_c = baseline
     return (torch.as_tensor(ms0, dtype=torch.int32).to(dev),
             torch.as_tensor(base_c, dtype=torch.float32).to(dev))
@@ -229,7 +248,9 @@ def _baseline(batch, cum, n_epochs, machine_rule, baseline, dev):
 def train_gate(batch: PackedInstance, intensity, cum, group_of, window,
                stretch: float, theta0, cfg: LearnConfig = LearnConfig(),
                feats=None, baseline=None,
-               device: str | torch.device = DEFAULT_DEVICE) -> TrainResult:
+               device: str | torch.device = DEFAULT_DEVICE,
+               greedy: Callable = greedy_reference,
+               row_grads_for: Callable | None = None) -> TrainResult:
     """Learn per-group gate thetas on a stacked instance batch, on ``device``.
 
     ``batch``/``intensity``/``cum``: stacked ``[B, ...]`` instances with
@@ -238,9 +259,12 @@ def train_gate(batch: PackedInstance, intensity, cum, group_of, window,
     ``window [B]`` each instance's gate window; ``stretch`` the shared
     stretch budget; ``theta0 [G]`` the initialization; ``feats [B, E]``
     optional per-epoch features; ``baseline`` an optional precomputed
-    ``(greedy_makespan [B], greedy_carbon [B])`` (omitted, it is computed
-    by :func:`greedy_reference`).  Deterministic.  The result's tensors
-    lie on ``device``.
+    ``(greedy_makespan [B], greedy_carbon [B])`` (omitted, ``greedy``
+    computes it: :func:`greedy_reference`).  ``row_grads_for(row_args,
+    inv_b)`` builds the step's ``row_grads`` (:func:`build_train_step`;
+    ``None``: the whole batch at once); a sharded learner sets it and
+    ``greedy`` (:mod:`repro_torch.shard.train`).  Deterministic.  The
+    result's tensors lie on ``device``.
     """
     dev = resolve_device(device)
     batch = _on(batch, dev)
@@ -249,7 +273,7 @@ def train_gate(batch: PackedInstance, intensity, cum, group_of, window,
     n_epochs = int(intensity.shape[-1])
     window = np.asarray(window, np.int32)
     ms0, base_c = _baseline(batch, cum, n_epochs, cfg.machine_rule,
-                            baseline, dev)
+                            baseline, dev, greedy)
     budget = stretch_budget(stretch, ms0)
     theta0 = torch.as_tensor(np.asarray(theta0, np.float32), device=dev)
     raw0 = torch.stack([logit(theta0), torch.zeros_like(theta0)], dim=1)
@@ -261,7 +285,7 @@ def train_gate(batch: PackedInstance, intensity, cum, group_of, window,
         "learn.train", _train, batch, intensity, cum,
         torch.as_tensor(np.asarray(group_of), dtype=torch.long, device=dev),
         torch.as_tensor(window, device=dev), budget, base_c, ms0, feats,
-        raw0, cfg, int(window.max()), n_epochs)
+        raw0, cfg, int(window.max()), n_epochs, row_grads_for)
 
 
 def _hard_eval(batch, intensity, cum, theta, window, budget,
@@ -276,18 +300,26 @@ def _hard_eval(batch, intensity, cum, theta, window, budget,
             makespan(batch, sch.start, sch.assign), done, clean)
 
 
+def _traced_hard_eval(*args):
+    return traced_call("learn.hard_eval", _hard_eval, *args)
+
+
 def evaluate_theta(batch: PackedInstance, intensity, cum, theta, window,
                    stretch: float, machine_rule: str = "earliest_finish",
                    baseline=None,
-                   device: str | torch.device = DEFAULT_DEVICE):
+                   device: str | torch.device = DEFAULT_DEVICE,
+                   greedy: Callable = greedy_reference,
+                   hard_eval: Callable = _traced_hard_eval):
     """Hard-dispatch evaluation of learned thetas (no relaxation), on
     ``device``.
 
     ``theta``: per-instance ``[B]`` or per-epoch ``[B, E]``.  Returns
     ``(savings [B], gated_carbon [B], base_carbon [B], makespan_ratio
     [B])``, the metrics of the fixed-grid sweep.  Raises if a schedule is
-    incomplete or fails the validator.  ``baseline`` as in
-    :func:`train_gate`.
+    incomplete or fails the validator.  ``baseline`` and ``greedy`` as in
+    :func:`train_gate`; ``hard_eval`` takes :func:`_hard_eval`'s arguments
+    (a sharded evaluation runs it shard by shard,
+    :mod:`repro_torch.shard.train`).
     """
     dev = resolve_device(device)
     batch = _on(batch, dev)
@@ -296,10 +328,10 @@ def evaluate_theta(batch: PackedInstance, intensity, cum, theta, window,
     n_epochs = int(intensity.shape[-1])
     window = np.asarray(window, np.int32)
     ms0, base_c = _baseline(batch, cum, n_epochs, machine_rule, baseline,
-                            dev)
+                            dev, greedy)
     budget = stretch_budget(stretch, ms0)
-    gated_c, gated_ms, done, clean = traced_call(
-        "learn.hard_eval", _hard_eval, batch, intensity, cum,
+    gated_c, gated_ms, done, clean = hard_eval(
+        batch, intensity, cum,
         torch.as_tensor(theta, dtype=torch.float32).to(dev),
         torch.as_tensor(window, device=dev), budget, int(window.max()),
         n_epochs, machine_rule)

@@ -8,22 +8,24 @@ Every (family, width/depth, server-count, fleet) cell contributes
 padding is inert) and the whole sweep runs as
 
 * **one** :func:`~repro_torch.core.solvers.online_torch.sweep_policies`
-  call for the carbon-gated online dispatcher (all cells x instances x
-  gate policies, one ``gate_quantile`` launch),
+  call a shard for the carbon-gated online dispatcher (all cells x
+  instances x gate policies, one ``gate_quantile`` launch),
 * **one** :func:`~repro_torch.core.solvers.bilevel.solve_bilevel_batch`
-  call for the offline SA bound (the paper's S-stretch bi-level protocol).
+  call a shard for the offline SA bound (the paper's S-stretch bi-level
+  protocol).
 
 Every greedy and gated schedule is checked by the shared validator.
 With ``learn=`` the sweep also trains a gate theta per cell and stretch
 (:mod:`repro_torch.learn`) and keeps it where its hard evaluation beats
-the best fixed policy (:func:`learned_summary` compares the two).
-
-Not ported yet: the reference's ``devices``/``processes`` sharded branch;
-it waits for the shard module.
+the best fixed policy (:func:`learned_summary` compares the two).  Every
+one of those programs runs through :mod:`repro_torch.shard` over the
+instance axis: unsharded is one shard on ``device``, and ``devices=`` /
+``processes=`` split the rows further, bit-exact with one shard.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -32,13 +34,12 @@ import torch
 from repro_torch.core.carbon import synthesize
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.objectives import evaluate, utilization
-from repro_torch.core.solvers import TorchDraws, solve_bilevel_batch
 from repro_torch.core.solvers.annealing import SAConfig
-from repro_torch.core.solvers.online_torch import (policy_grid,
-                                                   sweep_policies)
+from repro_torch.core.solvers.common import row_seeds
+from repro_torch.core.solvers.online_torch import policy_grid
 from repro_torch.core.validate import total_violations_batch
 from repro_torch.device import DEFAULT_DEVICE, Stages, resolve_device
-from repro_torch.learn import LearnConfig, evaluate_theta, train_gate
+from repro_torch.learn import LearnConfig
 from repro_torch.scenarios.batching import pack_aligned
 from repro_torch.scenarios.generator import ScenarioConfig, sample_batch
 
@@ -115,7 +116,9 @@ def build_batch(spec: SweepSpec,
 
 def sweep_structure(spec: SweepSpec, offline: bool = True,
                     learn: LearnConfig | None = None,
-                    device: str | torch.device = DEFAULT_DEVICE
+                    device: str | torch.device = DEFAULT_DEVICE,
+                    devices: int | Sequence | None = None,
+                    processes: int | None = None
                     ) -> tuple[list[dict], dict]:
     """Run the sweep on ``device``; returns (one aggregate row per cell,
     meta).
@@ -125,7 +128,9 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
     best policy and its savings; and (when ``offline``) the SA bi-level
     bound's savings.  ``offline=False`` skips the SA bound: the
     dispatch-only path draws nothing, which is what the golden locks.
-    The offline bound's SA draws come from ``TorchDraws(spec.seed)``.
+    The offline bound's SA draws are keyed by row:
+    ``RowDraws(row_seeds(spec.seed, B))``, so a row's bound does not
+    depend on the rows beside it.
 
     ``learn``: train a gate theta per (cell, stretch), initialized from
     the cell's best fixed policy at that stretch, and add a ``"learned"``
@@ -134,6 +139,17 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
     ``earliest_finish`` rule of the fixed grid is comparable.
     ``meta["seconds"]`` holds the wall time of each stage, synchronised;
     with ``learn``, ``meta["learn_step_seconds"]`` each training step's.
+
+    ``devices`` (an int, or a sequence of devices that may repeat one)
+    shards the instance axis of every program in the sweep (the gated
+    dispatch, the offline bound, the learner and its evaluation) over
+    those devices through :mod:`repro_torch.shard`; ``processes=P`` spans
+    the shards over a ``torch.distributed`` fleet of P processes, each
+    running this same call (``devices`` then counts per process; ``None``
+    is one card a process).  The batch is built on this process's first
+    shard device and ``device`` is not used.  Sharded results are
+    bit-exact with the single-device sweep: ``devices``/``processes``
+    change the walls, never a number.
     """
     if learn is not None and learn.machine_rule != "earliest_finish":
         # The fixed grid and its greedy baseline are earliest_finish; a
@@ -142,15 +158,25 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
             "sweep_structure(learn=...) compares against the "
             "earliest_finish fixed grid; train other machine rules "
             "directly via repro_torch.learn.train_gate")
-    dev = resolve_device(device)
+    # Imported here: repro_torch.shard pads with repro_torch.scenarios.
+    from repro_torch import shard
+    from repro_torch.shard.batch import call_devices
+    # Unsharded is one shard on ``device``: the same programs either way.
+    shard_devs = call_devices(device, devices, processes)
+    dev = shard_devs[0]
+    on = dict(devices=shard_devs, processes=processes)
+    dispatch = functools.partial(shard.dispatch_sharded, **on)
+    bound = functools.partial(shard.bilevel_sharded, **on)
+    train = functools.partial(shard.train_sharded, **on)
+    score = functools.partial(shard.eval_theta_sharded, **on)
     stages = Stages(dev)
     with stages("build"):
         sb = build_batch(spec, dev)
     B = int(sb.cell_of.shape[0])
 
     with stages("dispatch"):
-        res = sweep_policies(sb.batch, sb.intensity, spec.thetas,
-                             spec.windows, spec.stretches, device=dev)
+        res = dispatch(sb.batch, sb.intensity, spec.thetas, spec.windows,
+                       spec.stretches)
     mask = sb.batch.task_mask
     if not bool((res.greedy.scheduled | ~mask).all()):
         raise AssertionError("greedy dispatch incomplete: raise spec.horizon")
@@ -180,11 +206,9 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
 
     if offline:
         with stages("offline_bound"):
-            bires = solve_bilevel_batch(sb.batch, sb.cum,
-                                        TorchDraws(spec.seed, dev),
-                                        objective="carbon",
-                                        stretch=spec.offline_stretch,
-                                        cfg1=spec.sa, cfg2=spec.sa)
+            bires = bound(sb.batch, sb.cum, row_seeds(spec.seed, B),
+                          objective="carbon", stretch=spec.offline_stretch,
+                          cfg1=spec.sa, cfg2=spec.sa)
         off_sav = bires.carbon_savings.cpu().numpy()              # [B]
 
     learned_by_cell: dict[int, dict] = {}
@@ -192,7 +216,8 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
     if learn is not None:
         with stages("learn"):
             learned_by_cell, step_seconds = _learn_cells(
-                spec, sb, res, base.carbon, sav, th, wi, sx, learn, dev)
+                spec, sb, res, base.carbon, sav, th, wi, sx, learn, train,
+                score)
 
     mask = mask.cpu().numpy()
     rows = []
@@ -241,6 +266,8 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
         "offline": bool(offline),
         "offline_stretch": spec.offline_stretch,
         "device": str(dev),
+        "devices": len(shard_devs),
+        "processes": int(processes) if processes is not None else 1,
         "seconds": stages.seconds,
     }
     if learn is not None:
@@ -250,12 +277,13 @@ def sweep_structure(spec: SweepSpec, offline: bool = True,
 
 
 def _learn_cells(spec: SweepSpec, sb: SweepBatch, res, base_carbon, sav,
-                 th, wi, sx, learn: LearnConfig, dev: torch.device
+                 th, wi, sx, learn: LearnConfig, train, score
                  ) -> tuple[dict, dict]:
     """The ``learn=`` branch of :func:`sweep_structure`: per stretch, one
-    training run over every cell's group from the cells' best fixed
-    policies, then one hard evaluation.  Returns the ``"learned"`` field
-    of each cell and each stretch's training step walls."""
+    training run (``train``: ``train_gate`` or its sharded twin) over
+    every cell's group from the cells' best fixed policies, then one hard
+    evaluation (``score``).  Returns the ``"learned"`` field of each cell
+    and each stretch's training step walls."""
     n_cells = len(spec.cells)
     cell_idx = [np.where(sb.cell_of == ci)[0] for ci in range(n_cells)]
     # The greedy baseline was dispatched by the sweep: reuse it.
@@ -275,14 +303,12 @@ def _learn_cells(spec: SweepSpec, sb: SweepBatch, res, base_carbon, sav,
             theta0[ci], window0[ci] = th[j], wi[j]
             fixed_best[ci] = psav.max()
         wins = window0[sb.cell_of]
-        tr = train_gate(sb.batch, sb.intensity, sb.cum, sb.cell_of, wins,
-                        float(sx_val), theta0, cfg=learn,
-                        baseline=greedy_ref, device=dev)
+        tr = train(sb.batch, sb.intensity, sb.cum, sb.cell_of, wins,
+                   float(sx_val), theta0, cfg=learn, baseline=greedy_ref)
         step_seconds[str(float(sx_val))] = tr.step_seconds
         theta_l = tr.theta.cpu().numpy()
-        s_l = evaluate_theta(sb.batch, sb.intensity, sb.cum,
-                             theta_l[sb.cell_of], wins, float(sx_val),
-                             baseline=greedy_ref, device=dev)[0]
+        s_l = score(sb.batch, sb.intensity, sb.cum, theta_l[sb.cell_of],
+                    wins, float(sx_val), baseline=greedy_ref)[0]
         s_l = s_l.cpu().numpy()
         for ci in range(n_cells):
             lsav = float(s_l[cell_idx[ci]].mean())

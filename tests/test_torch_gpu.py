@@ -723,3 +723,63 @@ def test_cluster_plan_card_equals_cpu(cuda):
                 np.testing.assert_allclose(card[run][k], v, rtol=1e-6,
                                            err_msg=f"{run} {k}")
     assert card["failure"]["n_resolves"] == 1
+
+
+ROW_DRAW_KINDS = ("bits", "uniform", "bernoulli", "randint", "normal",
+                  "gumbel")
+
+
+def _row_draw(d, kind, shape):
+    if kind == "bernoulli":
+        return d.bernoulli(0.35, shape)
+    if kind == "randint":
+        return d.randint(0, 74, shape)
+    return getattr(d, kind)(shape)
+
+
+@pytest.mark.parametrize("kind", ROW_DRAW_KINDS)
+def test_row_draws_on_card(cuda, kind):
+    """``RowDraws`` on the card at the structure cell's SA shapes (cut to
+    96 rows): rows 0:48 alone bitwise the same rows of the full draw; the
+    integer path (bits, uniform, bernoulli, randint) bitwise the CPU's."""
+    seeds = common.row_seeds(2024, 96)
+    for shape in ((96, 24, 74), (96, 24, 74, 8)):
+        full = _row_draw(common.RowDraws(seeds, cuda), kind, shape)
+        half = _row_draw(common.RowDraws(seeds[:48], cuda), kind,
+                         (48,) + shape[1:])
+        assert _same_bits(full[:48], half)
+        if kind in ("bits", "uniform", "bernoulli", "randint"):
+            cpu = _row_draw(common.RowDraws(seeds, "cpu"), kind, shape)
+            assert _same_bits(full.cpu(), cpu)
+
+
+def test_sharded_entries_on_card(cuda):
+    """Two and three shards on one card: the bound, the TINY sweep and
+    the tiny training run equal the unsharded runs on the card."""
+    from repro_torch import shard
+    from repro_torch.learn import LearnConfig, train_gate
+    from repro_torch.scenarios import build_batch, sweep_structure
+    from repro_torch.shard.batch import tree_map
+
+    spec = bench.structure_spec(tiny=True)
+    sb = build_batch(spec, cuda)
+    b = PackedInstance(*(f[:5] for f in sb.batch))
+    seeds = common.row_seeds(3, 5)
+    cfg = SAConfig(pop=16, iters=8, sweeps=1)
+    kw = dict(objective="carbon", stretch=1.5, cfg1=cfg, cfg2=cfg)
+    ref = solve_bilevel_batch(b, sb.cum[:5], common.RowDraws(seeds, cuda),
+                              **kw)
+    got = shard.bilevel_sharded(b, sb.cum[:5], seeds,
+                                devices=[cuda] * 2, **kw)
+    refs, gots = [], []
+    tree_map(lambda x, y: (refs.append(x), gots.append(y)), ref, got)
+    assert all(_same_bits(x, y) for x, y in zip(refs, gots))
+    single, _ = sweep_structure(spec, offline=False, device=cuda)
+    rows, _ = sweep_structure(spec, offline=False, devices=[cuda] * 3)
+    assert rows == single
+    batch, inten, cum, group, window = bench.learn_tiny_inputs(cuda)
+    args = (batch, inten, cum, group, window, 1.5, [0.5, 0.5],
+            LearnConfig(steps=5))
+    one = train_gate(*args, device=cuda)
+    two = shard.train_sharded(*args, devices=[cuda] * 2)
+    assert all(_same_bits(x, y) for x, y in zip(one[:5], two[:5]))

@@ -85,7 +85,13 @@ def test_guard_sees_the_whole_port():
             port / "cluster" / "__init__.py",
             port / "cluster" / "energy_model.py",
             port / "cluster" / "workloads.py",
-            port / "cluster" / "executor.py"} <= set(PORT_FILES)
+            port / "cluster" / "executor.py",
+            port / "shard" / "__init__.py",
+            port / "shard" / "batch.py",
+            port / "shard" / "distributed.py",
+            port / "shard" / "dispatch.py",
+            port / "shard" / "sweep.py",
+            port / "shard" / "train.py"} <= set(PORT_FILES)
     assert {port / "configs" / f"{m.__name__.rsplit('.', 1)[1]}.py"
             for m in configs._MODULES} <= set(PORT_FILES)
     assert len(configs._MODULES) == 10
@@ -197,6 +203,37 @@ def test_cluster_bench_without_device_wants_the_card():
         bench.cluster_day(3)
     with pytest.raises(RuntimeError, match="cuda"):
         bench.main(["--only", "cluster", "--instances", "1"])
+
+
+def test_shard_entries_without_devices_want_the_card():
+    """Every sharded entry with ``devices=None`` shards over the local
+    cards, and raises without one; so does the bench's front door."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import numpy as np
+    from repro_torch import shard
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=2), "cpu")
+    inten = torch.full((2, cum.shape[-1] - 1), 100.0)
+    calls = [
+        lambda: shard.instance_devices(),
+        lambda: shard.run_rows_sharded(lambda x: x, (inten,)),
+        lambda: shard.dispatch_sharded(batch, inten, [0.5], [8], [1.5]),
+        lambda: shard.bilevel_sharded(batch, cum, np.zeros(2, np.uint64)),
+        lambda: shard.greedy_sharded(batch, cum, inten.shape[-1]),
+        lambda: shard.train_sharded(batch, inten, cum, [0, 1], [8, 8], 1.5,
+                                    [0.5, 0.5], LearnConfig(steps=1)),
+        lambda: shard.eval_theta_sharded(batch, inten, cum, [0.5, 0.5],
+                                         [8, 8], 1.5),
+        lambda: shard.sweep_sharded(bench.structure_spec(tiny=True),
+                                    offline=False),
+        lambda: sweep_structure(bench.structure_spec(tiny=True),
+                                offline=False, processes=1),
+        lambda: bench.main(["--only", "structure", "--devices", "2"]),
+        lambda: bench.main(["--only", "learned_gate", "--processes", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
