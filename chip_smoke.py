@@ -143,14 +143,35 @@ non-zero exit code if it fails:
     (this script run as ``--fleet-worker``, ranks spawned in reversed
     order with the ``REPRO_*`` env, gloo) sweeping the TINY grid with the
     offline bound, every rank's rows equal to one process's.  Launch
-    counts read around each sharded run.
+    counts read around each sharded run;
+17. families — the moe, encdec and vlm families at inference:
+    (a) ``flash_attention`` at their shapes (bf16) against its plain
+    version, timed (L2 flushed, median of 20) beside its bound and
+    ``scaled_dot_product_attention`` (``is_causal``): whisper's encoder
+    ``[1, 8, 1500, 64]`` and its cross attention (448 queries against
+    1500 frames), both non-causal, qwen3-moe's causal prefill
+    ``[1, 32, 4096, 128]`` on 4 kv heads and llava's ``[1, 56, 3904,
+    128]`` on 8; (b) whisper-base at full width and depth (prompts of 448
+    tokens), then qwen3-moe-30b-a3b and llava-next-34b at full width cut
+    to 8 layers (prompts of 1024-2048 tokens; llava's after 8 zero
+    patches), 8 requests each through ``ServeEngine`` as in phase 8, with
+    18 ``flash_attention`` launches a whisper prefill (6 encoder, 6
+    decoder, 6 cross) and one a layer for the other two, each run's
+    tokens/s, walls, peak memory and busy shares; (c) the same weights on
+    the card and on the CPU (whisper-base whole, qwen3-moe at full width
+    and 2 layers, llava at full width, 1 layer and 8 patches, kimi-k2
+    reduced): a short prompt, prefill and 4 decode steps allclose at
+    3e-2, the MoE routes compared layer by layer (a flip only at a near
+    tie, |p_a - p_b| <= 1e-6, and counted).
 
 The last four lines are each kernel's launches on each path, the
-``kernels`` JSON record (launches: the main path's), the card's name and
+``kernels`` JSON record (launches: the main path's; ``flash_attention``'s
+the serve path's and the families'), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import os
@@ -875,68 +896,89 @@ def flash_cases(dev) -> dict:
             "qwen": (*qkv(16, 16, 2048, 64), True, 0)}
 
 
-def flash_kernel_phase(dev) -> dict:
-    """flash_attention vs its plain version (and SDPA's time) on the card."""
+def flash_measure(name: str, q, k, v, causal: bool, window: int,
+                  reps: int, flush, sdpa_mask: bool = True) -> dict:
+    """flash_attention against its plain version at one shape, then its
+    time (CUDA events, L2 flushed, median of ``reps``) beside its bound,
+    the plain version's and ``scaled_dot_product_attention``'s (with an
+    explicit mask when ``sdpa_mask``, else ``is_causal``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import attention_ref, flash_attention_plain
+    from repro_torch.kernels.ref import flash_attention_plain
 
-    flush = l2_flush(dev)
-    record, max_err = None, 0.0
-    for name, (q, k, v, causal, window) in flash_cases(dev).items():
-        got = flash_attention(q, k, v, causal, window)
-        want = flash_attention_plain(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err, ratio = allclose_ratio(got, want, FLASH_ATOL, FLASH_TOL)
-        max_err = max(max_err, err)
-        check(got.shape == want.shape and err <= FLASH_TOL and ratio <= 1.0,
-              f"flash_attention != its plain version at the {name} shape "
-              f"{tuple(q.shape)} (max |diff| {err} of {FLASH_TOL}; "
-              f"{ratio:.3f} of the allclose bound at atol={FLASH_ATOL}, "
-              f"rtol={FLASH_TOL})")
-        B, H, S, dh = q.shape
-        KVH = k.shape[1]
-        i = torch.arange(S, device=dev)
-        live = torch.minimum(i + 1, torch.full_like(i, window or S)) \
-            if causal else torch.full_like(i, S)
-        ops = 4 * dh * int(live.sum()) * B * H      # QK^T and PV, 2 flops
-        moved = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in; o out
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        reps = KERNEL_REPS if name == "hymba" else 5
-        ms = time_cuda(lambda: flash_attention(q, k, v, causal, window),
-                       reps, flush)
-        plain_ms = time_cuda(
-            lambda: flash_attention_plain(q, k, v, causal, window), reps,
-            flush)
+    dev = q.device
+    got = flash_attention(q, k, v, causal, window)
+    want = flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err, ratio = allclose_ratio(got, want, FLASH_ATOL, FLASH_TOL)
+    check(got.shape == want.shape and err <= FLASH_TOL and ratio <= 1.0,
+          f"flash_attention != its plain version at the {name} shape "
+          f"{tuple(q.shape)} x {tuple(k.shape)} (max |diff| {err} of "
+          f"{FLASH_TOL}; {ratio:.3f} of the allclose bound at "
+          f"atol={FLASH_ATOL}, rtol={FLASH_TOL})")
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    i = torch.arange(Sq, device=dev)
+    live = torch.minimum(i + 1, torch.full_like(i, window or Sq)) \
+        if causal else torch.full_like(i, Skv)
+    ops = 4 * dh * int(live.sum()) * B * H      # QK^T and PV, 2 flops
+    moved = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in; o out
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    ms = time_cuda(lambda: flash_attention(q, k, v, causal, window),
+                   reps, flush)
+    plain_ms = time_cuda(
+        lambda: flash_attention_plain(q, k, v, causal, window), reps,
+        flush)
+    if sdpa_mask:
         mask = i[None, :] <= i[:, None] if causal else None
         if window:
             mask = mask & (i[None, :] > i[:, None] - window)
         library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), reps, flush)
-        print(f"kernel flash_attention {name} (B={B}, H={H}, KVH={KVH}, "
-              f"S={S}, dh={dh}, window={window}): allclose to the plain "
-              f"version (max |diff| {err:.6g}, {ratio:.3f} of the bound at "
-              f"atol={FLASH_ATOL}, rtol={FLASH_TOL}; median |out| "
-              f"{float(want.float().abs().median()):.4g}); {ms:.4f} ms (L2 "
-              f"flushed), plain "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention (GQA, "
-              f"mask) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({ops / 1e9:.3f} GFLOP over {int(live.sum()) * B * H / 1e6:.3f}"
-              f" M live pairs at 989 TFLOP/s = {ops_ms:.6f} ms; "
-              f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms); "
-              f"achieved {ops / ms / 1e9:.1f} TFLOP/s against the bound's "
-              f"{ops / bound_ms / 1e9:.1f} ({bound_ms / ms:.3f} of it)",
-              flush=True)
+        how = "GQA, mask"
+    else:
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), reps, flush)
+        how = f"GQA, is_causal={causal}"
+    print(f"kernel flash_attention {name} (B={B}, H={H}, KVH={KVH}, "
+          f"Sq={Sq}, Skv={Skv}, dh={dh}, causal={causal}, window={window}): "
+          f"allclose to the plain version (max |diff| {err:.6g}, "
+          f"{ratio:.3f} of the bound at atol={FLASH_ATOL}, rtol={FLASH_TOL}; "
+          f"median |out| {float(want.float().abs().median()):.4g}); "
+          f"{ms:.4f} ms (L2 flushed, median of {reps}), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention ({how}) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({ops / 1e9:.3f} GFLOP over {int(live.sum()) * B * H / 1e6:.3f}"
+          f" M live pairs at 989 TFLOP/s = {ops_ms:.6f} ms; "
+          f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms); "
+          f"achieved {ops / ms / 1e9:.1f} TFLOP/s against the bound's "
+          f"{ops / bound_ms / 1e9:.1f} ({bound_ms / ms:.3f} of it)",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "library_ms": library_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def flash_kernel_phase(dev) -> dict:
+    """flash_attention vs its plain version (and SDPA's time) on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    flush = l2_flush(dev)
+    record, max_err = None, 0.0
+    for name, (q, k, v, causal, window) in flash_cases(dev).items():
+        reps = KERNEL_REPS if name == "hymba" else 5
+        m = flash_measure(name, q, k, v, causal, window, reps, flush)
+        max_err = max(max_err, m["max_abs_err"])
         if name == "hymba":
             record = {"name": "flash_attention", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "replaces": "src/repro/kernels/flash_attention.py:85",
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "library_ms": library_ms}
+                      **m}
     # The naive oracle at one small shape, float32.
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -1964,29 +2006,33 @@ def learn_step_card_vs_cpu(sb, baseline, dev) -> None:
           f"{secs[0]:.3f} s, CPU {secs[1]:.3f} s", flush=True)
 
 
-def serve_phase(dev) -> dict:
-    """hymba-1.5b at full width through ServeEngine; launch counts read
-    around the run."""
+def serve_run(dev, cfg, lens, rng, per_prefill: dict, note: str) -> dict:
+    """``cfg`` (random weights from seed 0) serves one request of each
+    prompt length in ``lens`` (tokens drawn from ``rng``) through
+    ServeEngine (SERVE_SLOTS lanes,
+    greedy, SERVE_NEW new tokens), launch counts read around the run:
+    every request done with 1 + SERVE_NEW tokens, every logit finite, each
+    kernel of ``per_prefill`` launched that many times a prefill.  Prints
+    tokens/s, the prefill and decode walls, peak memory, and the busy
+    share of one prefill and one decode tick."""
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.api import build_model
     from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.serve.engine import frontend_tokens
 
-    cfg = configs.get("hymba-1.5b")
     t0 = time.perf_counter()
     model = build_model(cfg, dev, seed=0)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(0)
-    lens = rng.integers(2048, 4097, SERVE_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(L))
                     .astype(np.int32), max_new=SERVE_NEW)
             for i, L in enumerate(lens)]
+    P = frontend_tokens(cfg)
     eng = ServeEngine(model, ServeConfig(batch_slots=SERVE_SLOTS,
-                                         max_len=int(lens.max()) + 40),
+                                         max_len=P + int(max(lens)) + 40),
                       device=dev)
     # Every logit the engine samples from, checked on the device.
     bad = torch.zeros((), dtype=torch.int64, device=dev)
@@ -2007,56 +2053,74 @@ def serve_phase(dev) -> dict:
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    model.prefill, model.decode = plain_prefill, plain_decode
+    del model.prefill, model.decode      # the class's methods again
     peak = torch.cuda.max_memory_allocated(dev)
     n_tok = sum(len(r.out_tokens) for r in done)
-    want = cfg.n_layers * SERVE_REQUESTS
-    check(len(done) == SERVE_REQUESTS and all(
+    check(len(done) == len(lens) and all(
         r.done and not r.truncated and len(r.out_tokens) == 1 + SERVE_NEW
         for r in done),
-        "serve: not every request came back done with "
+        f"serve {cfg.name}: not every request came back done with "
         f"{1 + SERVE_NEW} tokens: "
         f"{[(r.rid, r.done, r.truncated, len(r.out_tokens)) for r in done]}")
-    check(int(bad) == 0, f"serve: {int(bad)} non-finite logits")
+    check(int(bad) == 0, f"serve {cfg.name}: {int(bad)} non-finite logits")
     for k in ("flash_attention", "ssd_scan"):
+        want = per_prefill.get(k, 0) * len(lens)
         check(launches.get(k, 0) == want,
-              f"{k} launched {launches.get(k, 0)} times in the serve run, "
-              f"expected {want} ({cfg.n_layers} layers x {SERVE_REQUESTS} "
-              "prefills)")
+              f"{k} launched {launches.get(k, 0)} times in the {cfg.name} "
+              f"serve run, expected {want} ({per_prefill.get(k, 0)} a "
+              f"prefill x {len(lens)} prefills)")
     s = eng.summary()
     pw = {k: v for k, v in s["wall"].items() if k.startswith("prefill")}
     dw = {k: v for k, v in s["wall"].items() if k.startswith("decode")}
     prefill_s = sum(v["mean"] * v["count"] for v in pw.values())
     decode_s = sum(v["mean"] * v["count"] for v in dw.values())
-    print(f"serve: {cfg.name} at full width ({n_params / 1e9:.3f} B "
+    print(f"serve: {cfg.name} {note} ({n_params / 1e9:.3f} B "
           f"parameters as stored; ArchConfig.param_count "
           f"{cfg.param_count() / 1e9:.3f} B; init {init_s:.1f} s), "
-          f"{SERVE_REQUESTS} requests of {sorted(int(L) for L in lens)} "
-          f"tokens, {SERVE_SLOTS} lanes, greedy, max_new {SERVE_NEW}: "
+          f"{len(lens)} requests of {sorted(int(L) for L in lens)} "
+          f"tokens{f' after {P} patch embeddings' if P else ''}, "
+          f"{SERVE_SLOTS} lanes, greedy, max_new {SERVE_NEW}: "
           f"{wall:.3f} s wall, {n_tok} tokens out ({n_tok / wall:.2f} "
-          f"tokens/s; {int(lens.sum()) / prefill_s:.1f} prompt tokens/s in "
-          f"prefill); prefill {prefill_s:.3f} s over {SERVE_REQUESTS} "
+          f"tokens/s; {int(sum(lens)) / prefill_s:.1f} prompt tokens/s in "
+          f"prefill); prefill {prefill_s:.3f} s over {len(lens)} "
           f"(first {pw.get('prefill_wall_s_first', {}).get('mean', 0):.3f} s,"
           f" warm mean {pw.get('prefill_wall_s_warm', {}).get('mean', 0):.3f}"
-          f" s), decode {decode_s:.3f} s over {s['ticks']} ticks (warm "
-          f"mean {dw.get('decode_wall_s_warm', {}).get('mean', 0) * 1e3:.2f}"
+          f" s), decode {decode_s:.3f} s over {s['ticks']} ticks (first "
+          f"{dw.get('decode_wall_s_first', {}).get('mean', 0) * 1e3:.2f} ms,"
+          f" warm mean "
+          f"{dw.get('decode_wall_s_warm', {}).get('mean', 0) * 1e3:.2f}"
           f" ms, p90 {dw.get('decode_wall_s_warm', {}).get('p90', 0) * 1e3:.2f}"
           f" ms; {s['decode_tokens']} decode tokens); flash_attention "
           f"launches {launches.get('flash_attention', 0)}, ssd_scan "
           f"launches {launches.get('ssd_scan', 0)}; peak device memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
-    tokens = torch.as_tensor(reqs[int(np.argmax(lens))].prompt[None],
-                             dtype=torch.int64, device=dev)
-    profile_busy(f"one hymba-1.5b prefill of {int(lens.max())} tokens",
-                 lambda: model.prefill({"tokens": tokens}))
-    profile_busy(f"one decode tick of {SERVE_SLOTS} lanes",
-                 lambda: model.decode({"token": tokens[:, :1].expand(
-                     SERVE_SLOTS, 1), "pos": torch.tensor(
-                         [int(lens.max())] * SERVE_SLOTS, device=dev),
-                     **eng.caches}))
-    del model, eng
+    longest = reqs[int(np.argmax(lens))].prompt
+    batch = eng.prefill_batch(longest)
+    profile_busy(f"one {cfg.name} prefill of {len(longest)} tokens",
+                 lambda: model.prefill(batch))
+    profile_busy(f"one {cfg.name} decode tick of {SERVE_SLOTS} lanes",
+                 lambda: model.decode({
+                     "token": batch["tokens"][:, :1].expand(SERVE_SLOTS, 1),
+                     "pos": torch.tensor([P + len(longest)] * SERVE_SLOTS,
+                                         device=dev), **eng.caches}))
+    del model, eng, batch
+    gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "seconds": wall}
+
+
+def serve_phase(dev) -> dict:
+    """hymba-1.5b at full width through ServeEngine, 8 requests of 2-4k
+    tokens; each kernel launched once a layer a prefill."""
+    import numpy as np
+    from repro_torch import configs
+
+    cfg = configs.get("hymba-1.5b")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(2048, 4097, SERVE_REQUESTS)
+    return serve_run(dev, cfg, lens, rng, {"flash_attention": cfg.n_layers,
+                                      "ssd_scan": cfg.n_layers},
+                     "at full width")
 
 
 def serve_reference_phase(dev) -> None:
@@ -2611,6 +2675,254 @@ def shard_path(dev, structure: dict, learn: dict) -> dict:
                          for k in set(bound) | set(tiny)}}
 
 
+# The moe, encdec and vlm families at inference: the attention kernel at
+# their shapes, then each served, then the card against the CPU.
+FAMILY_LAYERS = 8               # qwen3-moe (48) and llava (60) cut to 8
+WHISPER_CONTEXT = 448           # whisper's decoder positions
+WHISPER_PROMPT = WHISPER_CONTEXT - SERVE_NEW   # decoding stays inside it
+FAMILY_PROMPTS = (1024, 2049)   # qwen3-moe and llava prompt lengths
+FLIP_TOL = 1e-6                 # a routing flip only at a near tie
+
+
+def family_plan(rng) -> list:
+    """Phase 17's served runs, ``(cfg, prompt lengths, flash_attention
+    launches a prefill, note)``: whisper-base at full width and depth
+    (prompts of WHISPER_PROMPT tokens, so that decoding stays inside the
+    decoder's 448 positions; the reference's engine feeds the encoder one
+    zero frame a prompt token, so all take one pool length), then
+    qwen3-moe-30b-a3b and llava-next-34b at full width cut to
+    FAMILY_LAYERS layers (prompts of 1024-2048 tokens drawn from ``rng``;
+    llava's after 8 zero patches).  flash_attention: 18 launches a
+    whisper prefill (6 encoder, 6 decoder, 6 cross), one a layer for the
+    other two."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    whisper = configs.get("whisper-base")
+    plan = [(whisper, [WHISPER_PROMPT] * SERVE_REQUESTS,
+             2 * whisper.n_layers + whisper.n_encoder_layers,
+             "at full width and depth")]
+    for arch in ("qwen3-moe-30b-a3b", "llava-next-34b"):
+        full = configs.get(arch)
+        cfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS)
+        plan.append((cfg, rng.integers(*FAMILY_PROMPTS, SERVE_REQUESTS),
+                     FAMILY_LAYERS, f"at full width, {FAMILY_LAYERS} of "
+                     f"{full.n_layers} layers"))
+    return plan
+
+
+def family_flash_cases(dev, plan) -> tuple[dict, dict]:
+    """flash_attention inputs ``(q, k, v, causal)``, bf16, at the new
+    families' shapes.  First the shapes the served runs of ``plan`` give
+    it, at each model's longest prompt: whisper's encoder over its frames
+    (non-causal), its decoder's cross attention to them (non-causal) and
+    its causal self-attention; qwen3-moe's and llava's causal prefill
+    (llava's after its patches).  Then timing shapes the served path does
+    not reach: whisper's encoder over its 30 s window of 1500 frames, its
+    decoder's 448 queries against them, qwen3-moe's prefill of 4096
+    tokens (32 heads on 4, dh 128) and llava's of 2880 patches and 1024
+    text tokens (56 heads on 8, dh 128)."""
+    import torch
+    from repro_torch.serve.engine import frontend_tokens
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+
+    def qkv(H, KVH, Sq, Skv, dh):
+        return [torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                for s in ((1, H, Sq, dh), (1, KVH, Skv, dh),
+                          (1, KVH, Skv, dh))]
+    served = {}
+    for cfg, lens, _, _ in plan:
+        H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        n = int(max(lens))
+        S = frontend_tokens(cfg) + n
+        if cfg.n_encoder_layers:        # one encoder frame a prompt token
+            served[f"{cfg.name} served encoder"] = (*qkv(H, KVH, n, n, dh),
+                                                    False)
+            served[f"{cfg.name} served cross"] = (*qkv(H, KVH, S, n, dh),
+                                                  False)
+        served[f"{cfg.name} served prefill"] = (*qkv(H, KVH, S, S, dh), True)
+    timing = {"whisper encoder": (*qkv(8, 8, 1500, 1500, 64), False),
+              "whisper cross": (*qkv(8, 8, 448, 1500, 64), False),
+              "qwen3-moe prefill": (*qkv(32, 4, 4096, 4096, 128), True),
+              "llava prefill": (*qkv(56, 8, 3904, 3904, 128), True)}
+    return served, timing
+
+
+def family_kernel_phase(dev, plan) -> dict:
+    """(a) flash_attention at the families' shapes against its plain
+    version, timed beside its bound and SDPA (``is_causal``); the timing
+    shapes also by their device time."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    flush = l2_flush(dev)
+    served, timing = family_flash_cases(dev, plan)
+    out = {}
+    for name, (q, k, v, causal) in {**served, **timing}.items():
+        out[name] = flash_measure(name, q, k, v, causal, 0, KERNEL_REPS,
+                                  flush, sdpa_mask=False)
+        if name in timing:
+            print_device_ms(f"flash_attention {name}",
+                            lambda: flash_attention(q, k, v, causal),
+                            "flash_")
+    return out
+
+
+def family_serve_phase(dev, plan, rng) -> dict:
+    """(b) Each model of ``plan`` served through ServeEngine, its prompt
+    tokens drawn from ``rng``."""
+    runs, launches, seconds = {}, {}, 0.0
+    for cfg, lens, per_prefill, note in plan:
+        r = serve_run(dev, cfg, lens, rng, {"flash_attention": per_prefill},
+                      note)
+        runs[cfg.name] = r
+        seconds += r["seconds"]
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"launches": launches, "seconds": seconds, "runs": runs}
+
+
+def route_flips(ids_a, probs_a, ids_b) -> int:
+    """Rows whose chosen experts differ between two routings of the same
+    tokens; fails unless the experts at the differing slots tie within
+    FLIP_TOL in ``probs_a``."""
+    rows = (ids_a != ids_b).any(-1).nonzero()[:, 0].tolist()
+    for r in rows:
+        slots = (ids_a[r] != ids_b[r]).nonzero()[:, 0]
+        experts = sorted(set(ids_a[r, slots].tolist())
+                         | set(ids_b[r, slots].tolist()))
+        p = probs_a[r, experts]
+        check(float(p.max() - p.min()) <= FLIP_TOL,
+              f"routing: row {r} chose experts {ids_a[r].tolist()} on the "
+              f"card and {ids_b[r].tolist()} on the CPU, probabilities "
+              f"{p.tolist()} (not a tie within {FLIP_TOL})")
+    return len(rows)
+
+
+def family_reference_phase(dev) -> None:
+    """(c) The same weights on the card and on the CPU: whisper-base whole,
+    qwen3-moe at full width and 2 layers, llava at full width, 1 layer and
+    8 patches, kimi-k2 reduced.  A short prompt, prefill and 4 decode
+    steps, logits allclose at SERVE_REF_TOL; the MoE routes compared layer
+    by layer."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.api import Model, build_model
+    from repro_torch.serve.engine import frontend_inputs, frontend_tokens
+
+    def to_cpu(t):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in t.items()}
+
+    def pad(c):          # room for the decode steps in the KV caches
+        return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4))
+                if k in ("k_cache", "v_cache") else v for k, v in c.items()}
+
+    real_route = moe_mod._route
+    cases = [(configs.get("whisper-base"), 96),
+             (dataclasses.replace(configs.get("qwen3-moe-30b-a3b"),
+                                  n_layers=2), 128),
+             (dataclasses.replace(configs.get("llava-next-34b"), n_layers=1),
+              64),
+             (configs.get("kimi-k2-1t-a32b").reduced(), 100)]
+    for cfg, n in cases:
+        t0 = time.perf_counter()
+        card = build_model(cfg, dev, seed=0)
+        cpu = Model(cfg, to_cpu(card.tree()))
+        prompt = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, n)))
+        batch = {"tokens": prompt, **frontend_inputs(cfg, n, "cpu")}
+        P = frontend_tokens(cfg)
+        routes = {"card": [], "cpu": []}
+        side = ["card"]
+
+        def recording(x2d, router, k):
+            out = real_route(x2d, router, k)
+            routes[side[0]].append((x2d.cpu(), router.cpu(), k,
+                                    out[0].cpu(), out[2].cpu()))
+            return out
+        moe_mod._route = recording
+        try:
+            errs = []
+            lg, cg = card.prefill({k: v.to(dev) for k, v in batch.items()})
+            side[0] = "cpu"
+            lc, cc = cpu.prefill(batch)
+            cg, cc = pad(cg), pad(cc)
+            for step in range(5):
+                err, ratio = allclose_ratio(lg.cpu(), lc, SERVE_REF_TOL)
+                check(bool(torch.isfinite(lg).all()) and ratio <= 1.0,
+                      f"families reference: {cfg.name} card != CPU logits "
+                      f"at step {step} (max |diff| {err}, {ratio:.3f} of "
+                      f"the {SERVE_REF_TOL} bound)")
+                errs.append((err, ratio))
+                if step == 4:
+                    break
+                tok = torch.argmax(lc[:, :cfg.vocab_size], -1)[:, None]
+                pos = P + n + step
+                side[0] = "card"
+                lg, cg = card.decode({"token": tok.to(dev), "pos":
+                                      torch.tensor(pos, device=dev), **cg})
+                side[0] = "cpu"
+                lc, cc = cpu.decode({"token": tok, "pos": torch.tensor(pos),
+                                     **cc})
+        finally:
+            moe_mod._route = real_route
+        # Layer by layer, the card's router against the CPU's on the
+        # card's own router inputs: the same tokens, so any flip is the
+        # two devices' float32 sums at a near tie.  End to end the CPU's
+        # router reads its own hidden states, which differ from the
+        # card's by bf16 noise: those differences are counted (slots
+        # reordered, experts changed), and the logits check above holds
+        # their effect.
+        flips = rows = moved = changed = 0
+        check(len(routes["card"]) == len(routes["cpu"]),
+              f"families reference: {cfg.name} routed {len(routes['card'])}"
+              f" times on the card, {len(routes['cpu'])} on the CPU")
+        for (x2d, router, k, ia, pa), (_, _, _, ib, _) in zip(
+                routes["card"], routes["cpu"]):
+            flips += route_flips(ia, pa, real_route(x2d, router, k)[0])
+            rows += ia.shape[0]
+            moved += int((ia != ib).any(-1).sum())
+            changed += int((ia.sort(-1).values != ib.sort(-1).values)
+                           .any(-1).sum())
+        routed = (f"; routes compared layer by layer on the card's router "
+                  f"inputs: {rows} token rows in {len(routes['card'])} calls,"
+                  f" {flips} flips at near ties; end to end (each device's "
+                  f"own hidden states) {moved} rows routed otherwise, "
+                  f"{changed} of them to another expert set"
+                  if routes["card"] else "")
+        print(f"families reference: {cfg.name} ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}), a {n}-token prompt"
+              f"{f' after {P} patches' if P else ''} and 4 decode steps: "
+              f"card logits allclose to the CPU's at atol=rtol="
+              f"{SERVE_REF_TOL} (max |diff| per step "
+              f"{[round(e, 6) for e, _ in errs]}, largest share of the bound "
+              f"{max(r for _, r in errs):.3f}){routed}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del card, cpu
+        torch.cuda.empty_cache()
+
+
+def family_path(dev) -> dict:
+    """Phase 17: the moe, encdec and vlm families (a), (b), (c)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    plan = family_plan(rng)
+    kernels = family_kernel_phase(dev, plan)
+    served = family_serve_phase(dev, plan, rng)
+    family_reference_phase(dev)
+    print(f"families: phase 17 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {**served, "kernels": kernels}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2664,10 +2976,13 @@ def main() -> int:
     cluster_kernel_phase(dev)
     cluster = cluster_path(dev)
     sharded = shard_path(dev, structure, learn)
+    family = family_path(dev)
+    kernels[2]["launches"] += family["launches"].get("flash_attention", 0)
 
     paths = {"main": main, "online": online, "serve": serve,
              "forecast": forecast, "structure": structure, "stream": stream,
-             "learn": learn, "cluster": cluster, "shard": sharded}
+             "learn": learn, "cluster": cluster, "shard": sharded,
+             "families": family}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

@@ -1,4 +1,5 @@
-"""``flash_attention``: causal / sliding-window GQA attention (forward).
+"""``flash_attention``: causal, sliding-window or non-causal GQA attention
+(forward).
 
 Replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention_pallas``
 with the hand-written CUDA kernel ``csrc/flash_attention.cu`` (its header
@@ -9,7 +10,8 @@ dh]`` in q's dtype, in one launch.  Ragged lengths need no padding.
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_plain`
-(the model's blockwise ``flash_unrolled``).  The two agree to a tolerance:
+(the model's blockwise ``flash_unrolled``, or ``flash_scan`` for
+non-causal inputs).  The two agree to a tolerance:
 softmax sums reassociate.
 """
 from __future__ import annotations

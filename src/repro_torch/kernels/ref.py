@@ -107,16 +107,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The ``flash_attention`` kernel's plain version, in its layout.
 
     q ``[B, H, Sq, dh]``; k, v ``[B, KVH, Skv, dh]`` -> ``[B, H, Sq, dh]``:
-    the model's blockwise online softmax
-    (:func:`repro_torch.models.attention.flash_unrolled`, blocks of
-    ``block``), so that the CPU model computes what the JAX model does.
+    the model's blockwise online softmax, so that the CPU model computes
+    what the JAX model does: causal (or windowed) inputs through
+    :func:`repro_torch.models.attention.flash_unrolled` (blocks of
+    ``block``), non-causal
+    ones through :func:`~repro_torch.models.attention.flash_scan` (q
+    blocks of ``block // 2``, kv blocks of ``block``, as the reference's
+    model calls it).  Both are imported when called: the models import
+    the kernels.
     """
-    from repro_torch.models.attention import flash_unrolled
+    from repro_torch.models.attention import flash_scan, flash_unrolled
     B, H, Sq, dh = q.shape
     KVH = k.shape[1]
     qg = q.transpose(1, 2).reshape(B, Sq, KVH, H // KVH, dh)
-    out = flash_unrolled(qg, k.transpose(1, 2), v.transpose(1, 2),
-                         block=block, window=window, causal=causal)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if causal or window:
+        out = flash_unrolled(qg, kt, vt, block=block, window=window,
+                             causal=causal)
+    else:
+        out = flash_scan(qg, kt, vt, block_q=max(block // 2, 1),
+                         block_k=block)
     return out.reshape(B, Sq, H, dh).transpose(1, 2)
 
 

@@ -3,8 +3,12 @@
 Runs the continuous-batching engine over synthetic prompts, at the
 architecture's published width (``--reduced`` for the CPU-sized config)
 with random weights drawn from seed 0, as the reference's are, on the card
-unless ``--device cpu``.  The counterpart of ``repro.launch.serve``, whose ``--reduced``
-cannot be turned off (ROADMAP Queue 3).
+unless ``--device cpu``.  Every architecture of ``configs`` serves: an
+encdec model's encoder reads zero frames of the prompt's length, a
+vision-stub model's prompt follows the engine's zero patch embeddings
+(the KV horizon makes room for them).  The counterpart of
+``repro.launch.serve``, whose ``--reduced`` cannot be turned off (ROADMAP
+Queue 3), and of the reference's ``examples/serve_lm.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch import configs
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models.api import build_model
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import frontend_tokens
 
 
 def main(argv: list[str] | None = None) -> list[Request]:
@@ -45,7 +50,8 @@ def main(argv: list[str] | None = None) -> list[Request]:
             for i in range(args.requests)]
     eng = ServeEngine(model,
                       ServeConfig(batch_slots=args.slots,
-                                  max_len=args.prompt_len + args.max_new + 8,
+                                  max_len=frontend_tokens(cfg)
+                                  + args.prompt_len + args.max_new + 8,
                                   temperature=args.temperature),
                       device=args.device)
     t0 = time.perf_counter()

@@ -1,15 +1,18 @@
 """Public model API: ``build_model(cfg)`` -> a :class:`Model` whose
 ``prefill`` and ``decode`` run the serve path.
 
-The counterpart of ``repro.models.api`` for the dense, ssm and hybrid
-families.  The forwards are plain functions of (params, batch), as in the
-reference; :class:`Model` is the ``nn.Module`` that holds the stacked
-parameter tree under the reference's paths (``blocks.attn.wq``, with its
-leading layer axis), so that ``.to()`` and ``state_dict()`` work, and
-calls them.  Batch keys follow the reference: ``tokens`` [B, S] for
-prefill; ``token`` [B, 1], ``pos`` (scalar or per-lane [B]) and the
-stacked caches for decode.  ``loss_fn`` and the vision/audio frontends
-come with later slices.
+The counterpart of ``repro.models.api`` for every family (dense, moe, ssm,
+hybrid, encdec) and both stub frontends.  The forwards are plain
+functions of (params, batch), as in the reference; :class:`Model` is the
+``nn.Module`` that holds the stacked parameter tree under the reference's
+paths (``blocks.attn.wq``, with its leading layer axis), so that ``.to()``
+and ``state_dict()`` work, and calls them.  Batch keys follow the
+reference's ``input_specs``: ``tokens`` [B, S] for prefill, with
+``patch_embeds`` [B, P, D] prepended for the vision stub and
+``frame_embeds`` [B, S_enc, D] feeding the encoder of an encdec model;
+``token`` [B, 1], ``pos`` (scalar or per-lane [B]) and the stacked caches
+for decode.  ``loss_fn`` comes with the train slice (ROADMAP Queue 1 item
+8(b)).
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ def model_defs(cfg: ArchConfig) -> dict:
     defs["final_norm"] = norm_defs(cfg.d_model, cfg.norm)
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_defs(cfg.d_model, cfg.padded_vocab)
+    if cfg.n_encoder_layers:
+        defs["encoder"] = families.stack_defs(
+            families.block_defs(cfg, encoder=True), cfg.n_encoder_layers)
+        defs["enc_norm"] = norm_defs(cfg.d_model, cfg.norm)
     return defs
 
 
@@ -43,13 +50,38 @@ def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_in(params, cfg: ArchConfig, batch: dict, decode: bool = False):
-    """Token embedding. Returns x [B,S,D]."""
+    """Token (+ stub-frontend) embedding -> x [B, S, D]."""
     if decode:
         return embed_apply(params["embed"], batch["token"])
     x = embed_apply(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision_stub":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], 1)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(x.shape[1], cfg.d_model, device=x.device)
     return x
+
+
+def _decode_sinusoid(pos, B: int, d: int, device) -> torch.Tensor:
+    """The sinusoid of each lane's position, [B, d] float32, written as the
+    reference's decode writes it (``repro/models/api.py:136-143``)."""
+    posv = torch.as_tensor(pos, device=device).expand(B)
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-torch.log(torch.tensor(10000.0, device=device)) / d))
+    ang = posv[:, None].float() * div
+    pe = torch.zeros((B, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def _run_encoder(params, cfg: ArchConfig, par: ParallelCfg, frames):
+    x = frames.to(torch.bfloat16)
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(x.shape[1], cfg.d_model, device=x.device)
+    x, _, _ = families.stack_apply(
+        params["encoder"], x, cfg, par, mode="prefill",
+        n_layers=cfg.n_encoder_layers, causal=False)
+    return norm_apply(params["enc_norm"], x, cfg.norm, cfg.norm_eps)
 
 
 def _caches_out(new_caches: dict) -> dict:
@@ -59,17 +91,25 @@ def _caches_out(new_caches: dict) -> dict:
     if "h" in new_caches:
         out["ssm_state"], out["conv_state"] = (new_caches["h"],
                                                new_caches["conv"])
+    if "ck" in new_caches:
+        out["enc_out"], out["enc_out_v"] = new_caches["ck"], new_caches["cv"]
     return out
 
 
 def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     """Full-sequence forward -> (last-position logits [B, V], caches).
 
-    The caches (stacked [L, ...]) feed ``decode_fn`` directly.
+    The caches (stacked [L, ...]) feed ``decode_fn`` directly; an encdec
+    model's include the encoder output's cross K/V (``enc_out``,
+    ``enc_out_v``).
     """
     x = _embed_in(params, cfg, batch)
-    x, new_caches = families.stack_apply(
-        params["blocks"], x, cfg, par, mode="prefill", n_layers=cfg.n_layers)
+    enc = None
+    if cfg.n_encoder_layers:
+        enc = _run_encoder(params, cfg, par, batch["frame_embeds"])
+    x, new_caches, _ = families.stack_apply(
+        params["blocks"], x, cfg, par, mode="prefill", n_layers=cfg.n_layers,
+        enc=enc)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return _logits(params, cfg, x[:, -1]), _caches_out(new_caches)
 
@@ -80,14 +120,17 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     are left as they were."""
     x = _embed_in(params, cfg, batch, decode=True)
     if cfg.pos == "sinusoidal":
-        raise NotImplementedError("sinusoidal decode comes with the encdec "
-                                  "family (ROADMAP Queue 1 item 8)")
+        pe = _decode_sinusoid(batch["pos"], x.shape[0], cfg.d_model,
+                              x.device)
+        x = x + pe[:, None].to(x.dtype)
     caches: dict = {}
     if "k_cache" in batch:
         caches["k"], caches["v"] = batch["k_cache"], batch["v_cache"]
     if "ssm_state" in batch:
         caches["h"], caches["conv"] = batch["ssm_state"], batch["conv_state"]
-    x, new_caches = families.stack_apply(
+    if "enc_out" in batch:
+        caches["ck"], caches["cv"] = batch["enc_out"], batch["enc_out_v"]
+    x, new_caches, _ = families.stack_apply(
         params["blocks"], x, cfg, par, mode="decode", n_layers=cfg.n_layers,
         pos=batch["pos"], caches=caches)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)

@@ -1,18 +1,21 @@
-"""Attention: GQA projections, blockwise causal attention, KV cache.
+"""Attention: GQA projections, blockwise attention, KV cache.
 
 The counterpart of ``repro.models.attention`` for the serve path:
 
 * :func:`flash_unrolled` — causal (optionally sliding-window) attention
   for prefill, a Python loop over the q x kv block triangle that skips
-  fully masked block pairs.  It is the plain version of the
-  ``flash_attention`` kernel: the CPU runs it, the card runs the kernel
-  (``kernels.ops.flash_attention`` picks by the tensor's device);
-* :func:`decode_step` — one token against a (ring-buffered) KV cache,
-  with a per-lane position; plain torch on both devices, as in the
-  reference, where it runs outside any Pallas kernel.
+  fully masked block pairs;
+* :func:`flash_scan` — non-causal attention (the encoder, and the
+  decoder's cross attention over the encoder output), every q block
+  against every kv block.
 
-``flash_scan`` and the cross-attention / non-causal modes come with the
-encdec family.
+  These two are the plain versions of the ``flash_attention`` kernel: the
+  CPU runs them, the card runs the kernel (``kernels.ops.flash_attention``
+  picks by the tensor's device);
+* :func:`decode_step` — one token against a (ring-buffered) KV cache,
+  with a per-lane position; and ``cross_cached``, one token against the
+  stored encoder K/V.  Plain torch on both devices, as in the reference,
+  where they run outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -159,6 +162,31 @@ def flash_unrolled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Non-causal flash (encoder, cross attention): the kernel's plain version.
+# ---------------------------------------------------------------------------
+
+def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               block_q: int = 1024, block_k: int = 2048) -> torch.Tensor:
+    """Non-causal attention, O(block^2) live memory. Shapes as in
+    :func:`flash_unrolled`.  Blocks are the largest divisors of the lengths
+    within ``block_q`` / ``block_k`` (``gcd``), as in the reference; each q
+    block runs the online softmax over every kv block in order."""
+    B, Sq, K, G, h = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(h)
+    bq = math.gcd(min(block_q, Sq), Sq)
+    bk = math.gcd(min(block_k, Skv), Skv)
+    outs = []
+    for q0 in range(0, Sq, bq):
+        carry = _init_carry(B, K, G, bq, h, q.device)
+        for k0 in range(0, Skv, bk):
+            carry = _block_update(carry, q[:, q0:q0 + bq], k[:, k0:k0 + bk],
+                                  v[:, k0:k0 + bk], None, scale)
+        outs.append(_finish(*carry, q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+# ---------------------------------------------------------------------------
 # Decode: one new token vs. a KV cache (ring buffer when windowed).
 # ---------------------------------------------------------------------------
 
@@ -200,34 +228,57 @@ def decode_step(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
 # Full attention sub-layer.
 # ---------------------------------------------------------------------------
 
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, dh] -> the kernel's [B, H, S, dh], contiguous."""
+    return t.transpose(1, 2).contiguous()
+
+
 def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
                *, mode: str = "prefill", pos=None,
-               cache: dict | None = None):
-    """Causal GQA self-attention. mode: prefill (full sequence) or decode
-    (one token against ``cache`` = {"k","v"} [B,W,KVH,dh] at ``pos``).
+               cache: dict | None = None, kv_x: torch.Tensor | None = None,
+               causal: bool = True, q_offset: int = 0):
+    """GQA attention. mode: prefill (full sequence), decode (one token
+    against ``cache`` = {"k","v"} [B,W,KVH,dh] at ``pos``) or
+    ``cross_cached`` (one or more tokens against the precomputed encoder
+    K/V in ``cache``, unmasked).
 
-    Prefill runs through ``ops.flash_attention`` (the kernel on the card)
-    and emits the KV cache, ring-ordered when windowed so decode's
-    ``pos % W`` lines up.  Returns (out [B,S,D], new_cache).
+    ``kv_x``: the encoder output to attend to (cross attention: no rope;
+    a prefill emits its K/V as the cache for decode).  ``causal=False``:
+    the encoder's bidirectional attention.  ``q_offset``, the reference's
+    position of query row 0, is set by no caller there (its ``_embed_in``
+    returns 0); a non-zero one raises.  Prefill runs through
+    ``ops.flash_attention`` (the kernel on the card); a causal
+    self-attention prefill emits the KV cache, ring-ordered when windowed
+    so decode's ``pos % W`` lines up.  Returns (out [B,S,D], new_cache or
+    None).
     """
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "cross_cached"):
         raise NotImplementedError(
-            f"attention mode {mode!r} comes with the train / encdec slices "
-            "(ROADMAP Queue 1 item 14)")
+            f"attention mode {mode!r} comes with the train slice (ROADMAP "
+            "Queue 1 item 8(b))")
+    if q_offset:
+        raise NotImplementedError(
+            f"attn_apply: q_offset={q_offset}; query row 0 sits at key 0 "
+            "(ROADMAP Queue 1 item 8(b))")
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
     B, S, _ = x.shape
+    cached = mode == "cross_cached"
 
     q = _proj(x, cast(p["wq"]))
-    k = _proj(x, cast(p["wk"]))
-    v = _proj(x, cast(p["wv"]))
     if "bq" in p:
         q = q + cast(p["bq"])
-        k, v = k + cast(p["bk"]), v + cast(p["bv"])
+    src = x if kv_x is None else kv_x
+    if not cached:
+        k = _proj(src, cast(p["wk"]))
+        v = _proj(src, cast(p["wv"]))
+        if "bk" in p:
+            k, v = k + cast(p["bk"]), v + cast(p["bv"])
     if "q_norm" in p:
         q = _head_rms(q, p["q_norm"], cfg.norm_eps)
-        k = _head_rms(k, p["k_norm"], cfg.norm_eps)
-    if cfg.pos == "rope":
+        if not cached:
+            k = _head_rms(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos == "rope" and kv_x is None and not cached:
         if mode == "decode":
             qpos = torch.as_tensor(pos, device=x.device).expand(B)[:, None]
         else:
@@ -238,19 +289,32 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     hspec = batch_spec(par, None, "model", None)
     q = constrain(q, par, hspec)
 
+    new_cache = None
     if mode == "decode":
         out, kc, vc = decode_step(q.reshape(B, S, KVH, G, dh), k, v,
                                   cache["k"], cache["v"], pos,
                                   window=cfg.attn_window)
         new_cache = {"k": kc, "v": vc}
         out = out.reshape(B, S, H, dh)
+    elif cached:
+        kc, vc = cache["k"], cache["v"]
+        s = torch.einsum("bqkgh,bwkh->bkgqw", q.reshape(B, S, KVH, G, dh)
+                         .float(), kc.float()) / math.sqrt(dh)
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqw,bwkh->bqkgh", pr.to(vc.dtype).float(),
+                           vc.float()).to(x.dtype).reshape(B, S, H, dh)
+    elif not causal:
+        out = ops.flash_attention(_heads_first(q), _heads_first(k),
+                                  _heads_first(v), causal=False,
+                                  block=par.attn_block).transpose(1, 2)
+        if kv_x is not None:
+            new_cache = {"k": k, "v": v}           # cross-attn KV for decode
     else:
         out = ops.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True,
+            _heads_first(q), _heads_first(k), _heads_first(v), causal=True,
             window=cfg.attn_window, block=par.attn_block).transpose(1, 2)
         W = cfg.attn_window
-        if W and S >= W:
+        if kv_x is None and W and S >= W:
             slots = (S - W + torch.arange(W, device=x.device)) % W
             kc = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype,
                              device=x.device)
@@ -258,7 +322,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
             kc[:, slots] = k[:, -W:]
             vc[:, slots] = v[:, -W:]
             new_cache = {"k": kc, "v": vc}
-        else:
+        elif kv_x is None:
             new_cache = {"k": k, "v": v}
 
     out = constrain(out.reshape(B, S, H, dh), par, hspec)

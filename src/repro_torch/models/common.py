@@ -4,11 +4,20 @@ The counterpart of ``repro.models.common``, copied (the reference module
 imports JAX only for its input specs).  Every architecture is an
 :class:`ArchConfig`; ``configs/<id>.py`` holds the published dims.
 ``reduced()`` shrinks a config to a CPU-testable size of the same family.
-``input_specs`` (the dry run's stand-ins) waits for the dry-run slice.
+``input_specs`` gives the model inputs of one (arch x shape) cell as
+shapes and dtypes (:class:`TensorSpec`, allocating nothing) for the
+prefill and decode kinds; the train kind comes with the train slice
+(ROADMAP Queue 1 item 8(b)).  ``materialize`` builds real tensors of those
+specs on a device.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
@@ -174,3 +183,86 @@ def supports_shape(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
             return False, ("pure full-attention arch: 512k dense KV decode is "
                            "quadratic-cost; skipped per assignment")
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Input specs (shapes and dtypes; nothing is allocated).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: str | ShapeCfg,
+                scale_batch: int = 1) -> dict[str, TensorSpec]:
+    """Model inputs for one (arch x shape) cell, in the reference's keys
+    and order.
+
+    ``prefill``: a request batch of ``seq`` positions (for the vision stub
+                 ``n_frontend_tokens`` of them are patch embeddings; an
+                 encdec model's encoder reads ``seq`` frame embeddings).
+    ``decode`` : one new token against a ``seq``-long cache.
+    ``scale_batch`` divides the global batch (for reduced smoke runs).
+    """
+    sc = SHAPES[shape] if isinstance(shape, str) else shape
+    B = max(sc.batch // scale_batch, 1)
+    S = sc.seq
+    D = cfg.d_model
+    i32, bf16 = torch.int32, torch.bfloat16
+    if sc.kind == "train":
+        raise NotImplementedError("train input specs come with the train "
+                                  "slice (ROADMAP Queue 1 item 8(b))")
+    if sc.kind == "prefill":
+        if cfg.frontend == "vision_stub":
+            P = cfg.n_frontend_tokens
+            return {"patch_embeds": TensorSpec((B, P, D), bf16),
+                    "tokens": TensorSpec((B, S - P), i32)}
+        if cfg.family == "encdec":
+            return {"frame_embeds": TensorSpec((B, S, D), bf16),
+                    "tokens": TensorSpec((B, S), i32)}
+        return {"tokens": TensorSpec((B, S), i32)}
+
+    # decode: one-step serve with caches sized for S.
+    specs = {"token": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}
+    L = cfg.n_layers
+    if cfg.n_heads and cfg.n_kv_heads:
+        W = min(cfg.attn_window or S, S)
+        kv = (L, B, W, cfg.n_kv_heads, cfg.head_dim)
+        specs["k_cache"] = TensorSpec(kv, bf16)
+        specs["v_cache"] = TensorSpec(kv, bf16)
+    if cfg.ssm_state:
+        H, P_, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        specs["ssm_state"] = TensorSpec((L, B, H, P_, N), torch.float32)
+        specs["conv_state"] = TensorSpec((L, B, cfg.ssm_conv - 1,
+                                          cfg.conv_dim), bf16)
+    if cfg.family == "encdec":
+        enc = (L, B, S, cfg.n_kv_heads, cfg.head_dim)
+        specs["enc_out"] = TensorSpec(enc, bf16)
+        specs["enc_out_v"] = TensorSpec(enc, bf16)
+    return specs
+
+
+def materialize(cfg: ArchConfig, shape_name: str, seq: int = 64,
+                batch: int = 2, seed: int = 0,
+                device: str | torch.device = DEFAULT_DEVICE
+                ) -> dict[str, torch.Tensor]:
+    """Real inputs of ``input_specs(cfg, (shape_name's kind, seq, batch))``
+    on ``device``, drawn from ``numpy.random.default_rng(seed)`` in the
+    specs' order as the reference's tests draw them: integer ids in
+    ``[0, vocab_size)`` (a scalar ``pos`` is ``seq // 2``), float inputs
+    ``0.02 x N(0, 1)`` rounded to their dtype."""
+    device = resolve_device(device)
+    sc = ShapeCfg(shape_name, SHAPES[shape_name].kind, seq, batch)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, s in input_specs(cfg, sc).items():
+        if s.dtype == torch.int32:
+            a = (np.int32(seq // 2) if s.shape == () else
+                 rng.integers(0, cfg.vocab_size, s.shape).astype(np.int32))
+            out[k] = torch.as_tensor(a, device=device)
+        else:
+            out[k] = torch.as_tensor(0.02 * rng.standard_normal(s.shape),
+                                     dtype=s.dtype, device=device)
+    return out

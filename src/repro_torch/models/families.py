@@ -1,38 +1,27 @@
 """Per-family block assembly and the layer stack.
 
 The counterpart of ``repro.models.families`` for the serve path:
-  dense   : attn -> mlp                      (pre-norm residual)
-  ssm     : mamba2 mixer only (mamba has no separate FFN)
-  hybrid  : parallel attn + mamba heads on the same normed input
-            (outputs mean-combined, Hymba-style) -> mlp
+  dense / vlm : attn -> mlp                  (pre-norm residual)
+  moe         : attn -> moe ffn (+ aux loss)
+  ssm         : mamba2 mixer only (mamba has no separate FFN)
+  hybrid      : parallel attn + mamba heads on the same normed input
+                (outputs mean-combined, Hymba-style) -> mlp
+  encdec      : self-attn -> cross-attn -> mlp   (whisper decoder);
+                encoder blocks are non-causal attn -> mlp.
 Parameters are stacked with a leading layer axis, as in the reference;
 :func:`stack_apply` is a Python loop over it (no scan, and no remat, which
-is training).  ``moe``, ``encdec`` and the stub frontends come with their
-families; building a config that needs one raises.
+is training: ROADMAP Queue 1 item 8(b)).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, ssm as ssm_mod
+from repro_torch.models import attention, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import mlp_apply, mlp_defs, norm_apply, \
     norm_defs
 from repro_torch.models.params import ParamDef, tree_map_defs
 from repro_torch.models.parallel import ParallelCfg
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: moe, "
-            "encdec and vlm wait for ROADMAP Queue 1 item 8")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} ({cfg.name}) is not ported yet: the "
-            "vision and audio stubs wait for ROADMAP Queue 1 item 8")
 
 
 def stack_defs(defs, n_layers: int):
@@ -42,8 +31,7 @@ def stack_defs(defs, n_layers: int):
                            init=d.init, dtype=d.dtype, scale=d.scale), defs)
 
 
-def block_defs(cfg: ArchConfig) -> dict:
-    _check_family(cfg)
+def block_defs(cfg: ArchConfig, encoder: bool = False) -> dict:
     d = {}
     D, kind = cfg.d_model, cfg.norm
     d["norm1"] = norm_defs(D, kind)
@@ -53,16 +41,22 @@ def block_defs(cfg: ArchConfig) -> dict:
     d["attn"] = attention.attn_defs(cfg)
     if cfg.family == "hybrid":
         d["ssm"] = ssm_mod.ssm_defs(cfg)
+    if cfg.family == "encdec" and not encoder:
+        d["norm_x"] = norm_defs(D, kind)
+        d["cross"] = attention.attn_defs(cfg, cross=True)
     d["norm2"] = norm_defs(D, kind)
-    if cfg.d_ff:
+    if cfg.family == "moe":
+        d["moe"] = moe_mod.moe_defs(cfg)
+    elif cfg.d_ff:
         d["mlp"] = mlp_defs(D, cfg.d_ff, cfg.act)
     return d
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
-                *, mode: str, pos=None, cache: dict | None = None):
-    """One decoder block. Returns (x, new_cache)."""
-    _check_family(cfg)
+                *, mode: str, pos=None, cache: dict | None = None,
+                causal: bool = True, enc: torch.Tensor | None = None):
+    """One decoder/encoder block. Returns (x, new_cache, aux)."""
+    aux = torch.zeros((), device=x.device)
     new_cache: dict = {}
     kind, eps = cfg.norm, cfg.norm_eps
     h = norm_apply(p["norm1"], x, kind, eps)
@@ -71,13 +65,14 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         y, st = ssm_mod.ssm_apply(p["ssm"], h, cfg, par, mode=mode,
                                   state=cache)
         new_cache.update(st)
-        return x + y, new_cache
+        return x + y, new_cache, aux
 
     attn_cache = {k: cache[k] for k in ("k", "v")} if cache and "k" in cache \
         else None
     y, ac = attention.attn_apply(p["attn"], h, cfg, par, mode=mode, pos=pos,
-                                 cache=attn_cache)
-    new_cache.update(ac)
+                                 cache=attn_cache, causal=causal)
+    if ac is not None:
+        new_cache.update(ac)
 
     if cfg.family == "hybrid":
         # Hymba: attention and mamba heads read the SAME normed input in
@@ -90,9 +85,27 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         new_cache.update(st)
     x = x + y
 
+    if "cross" in p:
+        h = norm_apply(p["norm_x"], x, kind, eps)
+        if mode == "decode":
+            y, _ = attention.attn_apply(
+                p["cross"], h, cfg, par, mode="cross_cached",
+                cache={"k": cache["ck"], "v": cache["cv"]})
+            new_cache["ck"], new_cache["cv"] = cache["ck"], cache["cv"]
+        else:
+            y, cc = attention.attn_apply(p["cross"], h, cfg, par, mode=mode,
+                                         kv_x=enc, causal=False)
+            new_cache["ck"], new_cache["cv"] = cc["k"], cc["v"]
+        x = x + y
+
     h = norm_apply(p["norm2"], x, kind, eps)
-    y = mlp_apply(p["mlp"], h, cfg.act) if cfg.d_ff else torch.zeros_like(x)
-    return x + y, new_cache
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg, par)
+    elif cfg.d_ff:
+        y = mlp_apply(p["mlp"], h, cfg.act)
+    else:
+        y = torch.zeros_like(x)
+    return x + y, new_cache, aux
 
 
 def _layer(tree, i: int):
@@ -103,18 +116,24 @@ def _layer(tree, i: int):
 
 def stack_apply(stacked: dict, x: torch.Tensor, cfg: ArchConfig,
                 par: ParallelCfg, *, mode: str, n_layers: int, pos=None,
-                caches: dict | None = None):
+                caches: dict | None = None, causal: bool = True,
+                enc: torch.Tensor | None = None):
     """Run ``n_layers`` blocks over the stacked param tree, in order.
 
-    ``caches``: dict of [L, ...] tensors for decode.  Returns
-    (x, new_caches), the caches stacked [L, ...] again.
+    ``caches``: dict of [L, ...] tensors for decode.  ``enc``: the encoder
+    output every decoder layer attends to (encdec prefill).  Returns
+    (x, new_caches, aux_total), the caches stacked [L, ...] again and the
+    MoE aux losses summed over the layers, as the reference's scan does.
     """
     caches = caches if caches is not None else {}
+    aux = torch.zeros((), device=x.device)
     outs = []
     for i in range(n_layers):
-        x, nc = block_apply(_layer(stacked, i), x, cfg, par, mode=mode,
-                            pos=pos, cache=_layer(caches, i) or None)
+        x, nc, a = block_apply(_layer(stacked, i), x, cfg, par, mode=mode,
+                               pos=pos, cache=_layer(caches, i) or None,
+                               causal=causal, enc=enc)
+        aux = aux + a
         outs.append(nc)
     new_caches = ({k: torch.stack([o[k] for o in outs]) for k in outs[0]}
                   if outs and outs[0] else {})
-    return x, new_caches
+    return x, new_caches, aux

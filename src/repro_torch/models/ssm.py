@@ -166,7 +166,7 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
             f"ssm mode {mode!r} comes with the train slice (ROADMAP Queue 1 "
-            "item 14)")
+            "item 8(b))")
     Bsz, S, D = x.shape
     di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     Pd, K = cfg.ssm_headdim, cfg.ssm_conv

@@ -25,6 +25,22 @@ size the reference's decode spec gives it.  (The reference engine sizes it
 from the first admitted prompt, so a short first prompt shrinks every
 later request's window: ROADMAP Queue 3.)
 
+The stub frontends get what the reference's engine gives them: an encdec
+model's encoder reads ``len(prompt)`` zero frame embeddings, a vision-stub
+model's prompt is prefixed by :func:`frontend_tokens` zero patch
+embeddings.  Two of the reference engine's faults are repaired or refused
+(ROADMAP Queue 3 items 11 and 12):
+
+* a vision-stub lane's first decode position is ``P + len(prompt)``, the
+  length of what was prefilled; the reference's is ``len(prompt)``, so its
+  first decode step rotates at the wrong position and overwrites a prompt
+  slot;
+* the cross-attention pool (``enc_out``) holds the first request's
+  encoder length, and cross-attention decode has no key mask, so a
+  request of another encoder length cannot share it: the port raises a
+  ``ValueError`` naming both lengths, where the reference fails with a
+  broadcasting error.
+
 Greedy sampling is ``argmax`` over the real vocabulary; temperature
 sampling draws from a ``torch.Generator`` seeded with ``ServeConfig.seed``
 (its stream differs from ``jax.random``'s).
@@ -43,6 +59,31 @@ from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.serve.lanes import LanePool
 
 KV_KEYS = ("k_cache", "v_cache")
+MAX_PATCHES = 8                    # patch embeddings the engine prepends
+
+
+def frontend_tokens(cfg) -> int:
+    """Positions the engine prefixes to a prompt: ``min(n_frontend_tokens,
+    8)`` zero patch embeddings for the vision stub, none otherwise."""
+    if cfg.frontend == "vision_stub":
+        return min(cfg.n_frontend_tokens, MAX_PATCHES)
+    return 0
+
+
+def frontend_inputs(cfg, n: int, device) -> dict:
+    """The stub frontends' inputs to a prefill of an ``n``-token prompt,
+    as the reference's engine builds them: ``n`` zero encoder frames for
+    an encdec model, :func:`frontend_tokens` zero patches for the vision
+    stub, both ``[1, ., d_model]`` bf16 on ``device``."""
+    out = {}
+    if cfg.n_encoder_layers:
+        out["frame_embeds"] = torch.zeros((1, n, cfg.d_model),
+                                          dtype=torch.bfloat16, device=device)
+    P = frontend_tokens(cfg)
+    if P:
+        out["patch_embeds"] = torch.zeros((1, P, cfg.d_model),
+                                          dtype=torch.bfloat16, device=device)
+    return out
 
 
 @dataclasses.dataclass
@@ -95,8 +136,8 @@ class ServeEngine:
 
     def _init_caches(self, template: dict) -> None:
         """Allocate the lane pool from a single-request prefill's caches:
-        KV time dims take ``_ring()`` slots, SSM/conv caches keep their
-        shapes."""
+        KV time dims take ``_ring()`` slots, SSM/conv and cross-attention
+        caches keep their shapes."""
         B = self.sc.batch_slots
         pool = {}
         for k, v in template.items():
@@ -139,18 +180,35 @@ class ServeEngine:
         }
 
     # -- scheduling -----------------------------------------------------------
+    def prefill_batch(self, prompt, rid: int = -1) -> dict:
+        """One request's prefill batch: its tokens and
+        :func:`frontend_inputs`.  Raises if the encoder length differs
+        from the cross-attention pool's."""
+        n = len(prompt)
+        if self.cfg.n_encoder_layers:
+            pool = self.caches["enc_out"].shape[2] if self.caches else n
+            if n != pool:
+                raise ValueError(
+                    f"request {rid}: encoder length {n} differs from the "
+                    f"cross-attention pool's {pool} (set by the first "
+                    "request); cross-attention decode has no key mask, so "
+                    "one pool serves one encoder length")
+        return {"tokens": torch.as_tensor(np.asarray(prompt)[None, :],
+                                          dtype=torch.int64,
+                                          device=self.device),
+                **frontend_inputs(self.cfg, n, self.device)}
+
     def _admit(self, queue: list[Request]) -> None:
         for lane, req in self.lanes.admit(queue):
             t0 = time.perf_counter()
-            tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
-                                     dtype=torch.int64, device=self.device)
-            logits, caches_1 = self.model.prefill({"tokens": tokens})
+            logits, caches_1 = self.model.prefill(
+                self.prefill_batch(req.prompt, req.rid))
             if self.caches is None:
                 self._init_caches(caches_1)
             self._insert(lane, caches_1)
             tok = self._sample(logits)[0]     # host sync: covers the prefill
             req.out_tokens.append(int(tok))
-            self.lane_pos[lane] = len(req.prompt)
+            self.lane_pos[lane] = frontend_tokens(self.cfg) + len(req.prompt)
             self._observe_wall("prefill_wall_s", time.perf_counter() - t0)
             self.metrics.counter("requests_admitted").inc()
             self.tracer.instant("admit", self._tick, rid=req.rid, lane=lane,

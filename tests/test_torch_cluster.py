@@ -81,13 +81,16 @@ def test_registry_lists_all_ten_in_reference_order():
 
 @pytest.mark.parametrize("name", ["llava-next-34b", "whisper-base",
                                   "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
-def test_unported_archs_refuse_to_build(name):
-    """The vision frontend, encdec and moe wait for ROADMAP Queue 1 item 8:
-    building one raises instead of serving it as a plain text model."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_model(configs.get(name).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        serve.main(["--arch", name, "--reduced", "--device", "cpu"])
+def test_vlm_encdec_moe_archs_build_and_serve(name):
+    """The vision frontend, encdec and moe archs build reduced and serve
+    through the launcher, the frontends' positions inside the horizon."""
+    model = build_model(configs.get(name).reduced(), device="cpu")
+    assert model.cfg.family == configs.get(name).family
+    done = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "8",
+                       "--max-new", "2", "--slots", "2"])
+    assert [len(r.out_tokens) for r in done] == [3, 3]
+    assert not any(r.truncated for r in done)
 
 
 @pytest.mark.parametrize("name", ["codeqwen1.5-7b", "deepseek-67b",

@@ -493,6 +493,122 @@ def test_reduced_hymba_card_equals_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The moe, encdec and vlm families: the attention kernel at their shapes
+# (queries and keys of other lengths, short keys, GQA groups 7 and 8),
+# and one MoE layer card vs CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,KVH,Sq,Skv,dh,causal,dtype", [
+    (4, 2, 37, 300, 64, False, torch.bfloat16),      # Sq != Skv
+    (8, 8, 448, 1500, 64, False, torch.bfloat16),    # whisper's cross
+    (4, 2, 37, 300, 64, False, torch.float32),
+    (4, 2, 8, 8, 64, False, torch.bfloat16),         # Skv < 64
+    (4, 2, 8, 8, 64, True, torch.bfloat16),
+    (4, 2, 8, 8, 32, False, torch.float32),
+    (56, 8, 300, 300, 128, True, torch.bfloat16),    # llava: group 7
+    (32, 4, 300, 300, 128, True, torch.bfloat16),    # qwen3-moe: group 8
+    (32, 4, 130, 70, 128, False, torch.bfloat16),
+])
+def test_flash_attention_kernel_family_shapes(cuda, H, KVH, Sq, Skv, dh,
+                                              causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref, flash_attention_plain
+    q, k, v = _flash_case(cuda, 1, H, KVH, Sq, Skv, dh, dtype, seed=3)
+    reset_launches()
+    out = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q, k, v, causal).float(),
+        atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        out.float(), attention_ref(q, k, v, causal).float(), atol=tol,
+        rtol=tol)
+
+
+def test_moe_layer_card_equals_cpu(cuda, monkeypatch):
+    """One qwen3-moe-30b-a3b MoE layer at full width (128 experts, top 8)
+    on 96 tokens: the same ids on the card and the CPU (a flip only at a
+    near tie, |p_a - p_b| <= 1e-6), and the outputs allclose at 2e-2 with
+    the CPU's dispatch and combine fed the card's routing, so that every
+    row is compared whatever flipped."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.models.parallel import ParallelCfg
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    p = init_params(g, moe.moe_defs(cfg))
+    x = (0.5 * torch.randn((1, 96, cfg.d_model), generator=g, device=cuda)
+         ).bfloat16()
+    pc = {k: v.cpu() for k, v in p.items()}
+    ids, _, probs = moe._route(x.reshape(-1, cfg.d_model), p["router"],
+                               cfg.experts_per_token)
+    cids, _, _ = moe._route(x.cpu().reshape(-1, cfg.d_model), pc["router"],
+                            cfg.experts_per_token)
+    ids, probs = ids.cpu(), probs.cpu()
+    for r in torch.nonzero((ids != cids).any(-1))[:, 0].tolist():
+        slots = ids[r] != cids[r]
+        diff = sorted(set(ids[r, slots].tolist()) | set(cids[r, slots].tolist()))
+        pr = probs[r, diff]
+        assert float(pr.max() - pr.min()) <= 1e-6, (r, diff, pr)
+    y, aux = moe.moe_apply(p, x, cfg, ParallelCfg())
+    _, auxc = moe.moe_apply(pc, x.cpu(), cfg, ParallelCfg())
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(aux.cpu(), auxc, atol=1e-5, rtol=1e-4)
+    card_route = tuple(t.cpu() for t in moe._route(
+        x.reshape(-1, cfg.d_model), p["router"], cfg.experts_per_token))
+    monkeypatch.setattr(moe, "_route", lambda *_: card_route)
+    yc, _ = moe.moe_apply(pc, x.cpu(), cfg, ParallelCfg())
+    torch.testing.assert_close(y.cpu().float(), yc.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_reduced_families_card_equal_cpu(cuda):
+    """whisper-base (encoder non-causal, cross, decoder causal: three
+    launches a layer pair) and llava-next-34b (8 zero patches) reduced, the
+    same weights on the card and the CPU: prefill and two decode steps
+    allclose at 3e-2."""
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import frontend_inputs, frontend_tokens
+    for arch in ("whisper-base", "llava-next-34b"):
+        cfg = configs.get(arch).reduced()
+        card = build_model(cfg, cuda, seed=2)
+        cpu = build_model(cfg, "cpu", seed=2)
+        cpu.load_state_dict({k: v.cpu()
+                             for k, v in card.state_dict().items()})
+        n = 70
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (1, n)))
+        batch = {"tokens": toks, **frontend_inputs(cfg, n, "cpu")}
+        prefix = frontend_tokens(cfg)
+        reset_launches()
+        lg, cg = card.prefill({k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        want = cfg.n_layers * (2 if cfg.n_encoder_layers else 1) \
+            + cfg.n_encoder_layers
+        assert LAUNCHES["flash_attention"] == want
+        lc, cc = cpu.prefill(batch)
+        pad = lambda c: {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4))  # noqa: E731
+                         if k in ("k_cache", "v_cache") else v
+                         for k, v in c.items()}
+        cg, cc = pad(cg), pad(cc)
+        torch.testing.assert_close(lg.cpu(), lc, atol=3e-2, rtol=3e-2)
+        for t in range(2):
+            tok = torch.argmax(lc, -1)[:, None]
+            pos = prefix + n + t
+            lg, cg = card.decode({"token": tok.to(cuda),
+                                  "pos": torch.tensor(pos, device=cuda),
+                                  **cg})
+            lc, cc = cpu.decode({"token": tok, "pos": torch.tensor(pos),
+                                 **cc})
+            torch.testing.assert_close(lg.cpu(), lc, atol=3e-2, rtol=3e-2)
+
+
+# ---------------------------------------------------------------------------
 # The stream path: the gate at the engine's two shapes, the TINY goldens on
 # the card, and the TINY grid's most backlogged cell and its banded-gate
 # poisson cell card vs CPU.

@@ -68,7 +68,7 @@ def test_guard_sees_the_whole_port():
             "engine.py", "flash_attention.py", "ssd_scan.py", "api.py",
             "convert.py", "serve.py", "exact.py", "models.py", "rolling.py",
             "families.py", "fleets.py", "generator.py", "batching.py",
-            "sweep.py"} <= names
+            "sweep.py", "moe.py", "common.py"} <= names
     port = ROOT / "src" / "repro_torch"
     assert {port / "core" / "solvers" / "rolling.py",
             port / "forecast" / "rolling.py",
@@ -91,7 +91,10 @@ def test_guard_sees_the_whole_port():
             port / "shard" / "distributed.py",
             port / "shard" / "dispatch.py",
             port / "shard" / "sweep.py",
-            port / "shard" / "train.py"} <= set(PORT_FILES)
+            port / "shard" / "train.py",
+            port / "models" / "moe.py",
+            port / "models" / "common.py",
+            port / "launch" / "serve.py"} <= set(PORT_FILES)
     assert {port / "configs" / f"{m.__name__.rsplit('.', 1)[1]}.py"
             for m in configs._MODULES} <= set(PORT_FILES)
     assert len(configs._MODULES) == 10
@@ -148,6 +151,16 @@ def test_build_model_without_device_wants_the_card():
         build_model(configs.get("hymba-1.5b").reduced())
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_numpy({}, configs.get("hymba-1.5b").reduced())
+
+
+def test_materialize_without_device_wants_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.models.common import materialize
+    with pytest.raises(RuntimeError, match="cuda"):
+        materialize(configs.get("whisper-base").reduced(), "prefill_32k")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(configs.get("qwen3-moe-30b-a3b").reduced())
 
 
 def test_serve_engine_without_device_wants_the_card():

@@ -154,12 +154,29 @@ def test_build_model_is_seeded():
     assert not torch.equal(a.embed.table, c.embed.table)
 
 
-def test_unported_family_raises():
-    moe = ArchConfig(name="m", family="moe", n_layers=1, d_model=8,
-                     n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=16,
-                     n_experts=2, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_model(moe, "cpu")
+def test_every_family_builds():
+    """A config of each family and frontend builds and prefills (the
+    refusal of the moe and encdec families and the stub frontends is
+    gone)."""
+    base = dict(name="m", n_layers=1, d_model=8, n_heads=2, n_kv_heads=2,
+                head_dim=4, d_ff=8, vocab_size=16, vocab_pad_multiple=16)
+    cfgs = [ArchConfig(family="moe", n_experts=2, experts_per_token=1,
+                       **base),
+            ArchConfig(family="encdec", n_encoder_layers=1, pos="sinusoidal",
+                       frontend="audio_stub", **base),
+            ArchConfig(family="dense", frontend="vision_stub",
+                       n_frontend_tokens=2, **base)]
+    for cfg in cfgs:
+        model = build_model(cfg, "cpu")
+        batch = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
+        if cfg.n_encoder_layers:
+            batch["frame_embeds"] = torch.zeros((1, 5, 8))
+        if cfg.frontend == "vision_stub":
+            batch["patch_embeds"] = torch.zeros((1, 2, 8))
+        logits, caches = model.prefill(batch)
+        assert logits.shape == (1, 16) and bool(torch.isfinite(logits).all())
+        prefix = 2 if cfg.frontend == "vision_stub" else 0
+        assert caches["k_cache"].shape[2] == 3 + prefix
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +237,8 @@ def test_block(arch, pair):
     p = _layer(jp["blocks"], 1)
     x, tx = _hidden(model.cfg, 5)
     y, c, _ = j_families.block_apply(p, x, jcfg, JPAR, mode="prefill")
-    ty, tc = families.block_apply(_tree(p), tx, model.cfg, PAR,
-                                  mode="prefill")
+    ty, tc, _ = families.block_apply(_tree(p), tx, model.cfg, PAR,
+                                     mode="prefill")
     _close(ty, y)
     assert set(tc) == set(c)
     for k in c:
