@@ -162,18 +162,44 @@ non-zero exit code if it fails:
     and 2 layers, llava at full width, 1 layer and 8 patches, kimi-k2
     reduced): a short prompt, prefill and 4 decode steps allclose at
     3e-2, the MoE routes compared layer by layer (a flip only at a near
-    tie, |p_a - p_b| <= 1e-6, and counted).
+    tie, |p_a - p_b| <= 1e-6, and counted);
+18. train — (a) hymba-1.5b at full width and depth (1.642 B parameters,
+    f32 with f32 AdamW moments) trains 8 steps at seq 4096 x batch 2
+    (the reference's ``train_4k`` sequence; its batch of 256 cut so one
+    card holds it), remat full, through ``repro_torch.launch.train``:
+    every loss and grad norm finite, the last loss below the first, each
+    model kernel launched exactly 64 times a step (twice a layer: the
+    forward and the remat recompute) and the plain versions called only
+    in autograd's backward, once a layer; s a step, tokens/s, peak
+    memory, one step split into forward, backward (of which the plain
+    recompute of attention and of the scan) and optimizer, and one step's
+    busy share; then the same 8 steps with a checkpoint every 2, a
+    preemption as step 5 starts and a fresh Trainer resumed from the
+    latest complete checkpoint, its final loss within rel 1e-3 of the
+    uninterrupted run's; (b) whisper-base at full width and depth, two
+    steps at seq 448 x batch 4 (the encoder's and the cross attention
+    through the trainable entry; 36 launches a step); (c) the same
+    weights and batch on the card and on the CPU — hymba at full width
+    cut to 2 layers (seq 512), reduced qwen1.5-0.5b, mamba2-370m,
+    qwen3-moe-30b-a3b, whisper-base and llava-next-34b (seq 128): the
+    loss within 3e-2, every gradient leaf within relative Frobenius 5e-2
+    (the worst printed), the parameters after one AdamW step allclose at
+    3e-2; (d) both kernels at the train shapes (batch 2 x 4096) against
+    their plain versions, timed beside their bounds, the plain versions,
+    SDPA with the window mask, and the trainable entries' backward.
 
 The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches: the main path's; ``flash_attention``'s
-the serve path's and the families'), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+the serve path's, the families' and the train path's; ``ssd_scan``'s the
+serve path's and the train path's), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import gc
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -722,7 +748,8 @@ def profile_busy(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
+    kernels = [(e.name, e.time_range.start, e.time_range.end)
+               for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith("repro_torch.")]
     if not report_kernels(label, kernels, wall_ms):
@@ -739,10 +766,11 @@ def report_kernels(label: str, kernels: list, wall_ms: float,
                    note: str = "") -> bool:
     """Print the device busy share (overlapping kernel intervals merged),
     the kernel count, the five heaviest kernels and the port's own; False
-    (busy share not measured) when the trace holds no device time."""
+    (busy share not measured) when the trace holds no device time.
+    ``kernels``: the trace's device events, each ``(name, start_us,
+    end_us)``."""
     busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in kernels):
+    for lo, hi in sorted((lo, hi) for _, lo, hi in kernels):
         busy_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     if busy_us <= 0:
@@ -753,8 +781,8 @@ def report_kernels(label: str, kernels: list, wall_ms: float,
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%), "
           f"{len(kernels)} kernels{note}", flush=True)
     by_name: dict[str, list] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, lo, hi in kernels:
+        by_name.setdefault(name, []).append(hi - lo)
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]:
         print(f"  kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
               f"{len(ts)} launches", flush=True)
@@ -1020,58 +1048,71 @@ def ssd_cases(dev) -> dict:
             "mamba": case(2048, 32, 64, 1, 128, 256)}
 
 
-def ssd_kernel_phase(dev) -> dict:
-    """ssd_scan vs its plain version on the card; no one PyTorch call
-    computes the scan, so there is no library time."""
+def ssd_measure(name: str, x, dt, A, Bm, Cm, chunk: int, reps: int,
+                flush) -> dict:
+    """ssd_scan against its plain version at one shape, then its time
+    (CUDA events, L2 flushed, median of ``reps``) beside its bound and the
+    plain version's; no one PyTorch call computes the scan, so there is
+    no library time."""
     import torch
-    from repro_torch.models.ssm import ssd_chunked, ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    y, h = ssd_scan(x, dt, A, Bm, Cm, chunk)
+    yr, hr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    err, ratio = allclose_ratio(y, yr, SSD_TOL)
+    _, uratio = allclose_ratio(y, yr, ULP_ATOL, BF16_ULP)
+    herr, hratio = allclose_ratio(h, hr, STATE_TOL)
+    check(ratio <= 1.0 and uratio <= 1.0 and hratio <= 1.0,
+          f"ssd_scan != its plain version at the {name} shape "
+          f"{tuple(x.shape)}: y max |diff| {err} ({ratio:.3f} of the "
+          f"{SSD_TOL} bound, {uratio:.3f} of one bf16 ulp + "
+          f"{ULP_ATOL}), h_final {herr} ({hratio:.3f} of {STATE_TOL})")
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    full, rest = divmod(S, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    # C.B over the causal pairs once per group (it does not depend on
+    # the head); per head M.x over the pairs, the state update and the
+    # inflow.
+    ops = B * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * S * P * N))
+    moved = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * Bm.numel() * 2
+             + A.numel() * 4 + h.numel() * 4)
+    ops_ms = ops / TF32_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    ms = time_cuda(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), reps, flush)
+    plain_ms = time_cuda(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk),
+                         reps, flush)
+    print(f"kernel ssd_scan {name} (B={B}, S={S}, H={H}, P={P}, G={G}, "
+          f"N={N}, chunk={Q}): allclose to the plain version (y max "
+          f"|diff| {err:.6g}, {ratio:.3f} of the bound at atol=rtol="
+          f"{SSD_TOL}, {uratio:.3f} of one bf16 ulp + {ULP_ATOL}, max "
+          f"|y| {float(yr.float().abs().max()):.4g}; h_final "
+          f"{herr:.6g}, {hratio:.3f} of {STATE_TOL});"
+          f" {ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, no "
+          f"library call; bound {bound_ms:.6f} ms ({ops / 1e9:.3f} GFLOP"
+          f" at 495 TFLOP/s TF32 = {ops_ms:.6f} ms; {moved / 1e6:.3f} MB"
+          f" at 3.35 TB/s = {bytes_ms:.6f} ms); {B * H} (b, h) pairs",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "library_ms": None,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def ssd_kernel_phase(dev) -> dict:
+    """ssd_scan vs its plain version on the card."""
+    from repro_torch.models.ssm import ssd_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     flush = l2_flush(dev)
     record, max_err = None, 0.0
     for name, (x, dt, A, Bm, Cm, chunk) in ssd_cases(dev).items():
-        y, h = ssd_scan(x, dt, A, Bm, Cm, chunk)
-        yr, hr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
-        torch.cuda.synchronize()
-        err, ratio = allclose_ratio(y, yr, SSD_TOL)
-        _, uratio = allclose_ratio(y, yr, ULP_ATOL, BF16_ULP)
-        herr, hratio = allclose_ratio(h, hr, STATE_TOL)
-        max_err = max(max_err, err)
-        check(ratio <= 1.0 and uratio <= 1.0 and hratio <= 1.0,
-              f"ssd_scan != its plain version at the {name} shape "
-              f"{tuple(x.shape)}: y max |diff| {err} ({ratio:.3f} of the "
-              f"{SSD_TOL} bound, {uratio:.3f} of one bf16 ulp + "
-              f"{ULP_ATOL}), h_final {herr} ({hratio:.3f} of {STATE_TOL})")
-        B, S, H, P = x.shape
-        G, N = Bm.shape[2], Bm.shape[3]
-        Q = min(chunk, S)
-        full, rest = divmod(S, Q)
-        pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
-        # C.B over the causal pairs once per group (it does not depend on
-        # the head); per head M.x over the pairs, the state update and the
-        # inflow.
-        ops = B * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * S * P * N))
-        moved = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * Bm.numel() * 2
-                 + A.numel() * 4 + h.numel() * 4)
-        ops_ms = ops / TF32_OPS_PER_S * 1e3
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
         reps = KERNEL_REPS if name == "hymba" else 5
-        ms = time_cuda(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), reps,
-                       flush)
-        plain_ms = time_cuda(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk),
-                             reps, flush)
-        print(f"kernel ssd_scan {name} (B={B}, S={S}, H={H}, P={P}, G={G}, "
-              f"N={N}, chunk={Q}): allclose to the plain version (y max "
-              f"|diff| {err:.6g}, {ratio:.3f} of the bound at atol=rtol="
-              f"{SSD_TOL}, {uratio:.3f} of one bf16 ulp + {ULP_ATOL}, max "
-              f"|y| {float(yr.float().abs().max()):.4g}; h_final "
-              f"{herr:.6g}, {hratio:.3f} of {STATE_TOL});"
-              f" {ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, no "
-              f"library call; bound {bound_ms:.6f} ms ({ops / 1e9:.3f} GFLOP"
-              f" at 495 TFLOP/s TF32 = {ops_ms:.6f} ms; {moved / 1e6:.3f} MB"
-              f" at 3.35 TB/s = {bytes_ms:.6f} ms); {B * H} (b, h) pairs",
-              flush=True)
+        m = ssd_measure(name, x, dt, A, Bm, Cm, chunk, reps, flush)
+        max_err = max(max_err, m["max_abs_err"])
         if name == "hymba":
             parts = device_kernel_ms(
                 lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), "ssd_")
@@ -1083,10 +1124,7 @@ def ssd_kernel_phase(dev) -> dict:
                   flush=True)
             record = {"name": "ssd_scan", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                      "replaces": "src/repro/kernels/ssd_scan.py:73",
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "library_ms": None}
+                      "replaces": "src/repro/kernels/ssd_scan.py:73", **m}
     x, dt, A, Bm, Cm, _ = ssd_cases(dev)["ragged"]
     small = (x[:, :96, :2].float().contiguous(), dt[:, :96, :2].contiguous(),
              A[:2].contiguous(), Bm[:, :96].float().contiguous(),
@@ -1752,7 +1790,9 @@ LEARN_FIXED = ("greedy_carbon_g", "greedy_makespan", "greedy_utilization_pct",
 def profile_kernels(label: str, fn) -> None:
     """:func:`profile_busy` from a trace of the card alone (no host ops:
     a learner step launches ~3e5 kernels, and host events would multiply
-    the trace), with the time the trace took to read back."""
+    the trace), with the time the trace took to read back.  The device
+    events are read from the profiler's raw results: building its Python
+    event list took ~50 s for a learner step's trace, this ~1 s."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1762,7 +1802,10 @@ def profile_kernels(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.name(), e.start_ns() / 1e3,
+                (e.start_ns() + e.duration_ns()) / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
     report_kernels(label, kernels, (t1 - t0) * 1e3,
                    f" (trace read back in {time.perf_counter() - t1:.1f} s)")
 
@@ -2923,6 +2966,469 @@ def family_path(dev) -> dict:
     return {**served, "kernels": kernels}
 
 
+# Phase 18: training.  hymba-1.5b at its published width and depth
+# through launch.train and the Trainer (a preemption and its resume),
+# whisper-base's encoder and cross attention, the card against the CPU,
+# then the two kernels timed at the train shapes.
+TRAIN_SEQ = 4096                # the reference's train_4k sequence
+TRAIN_BATCH = 2                 # train_4k's 256, cut so one card holds it
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAULT = 5                 # the preemption: raised as step 5 starts
+TRAIN_RESUME_RTOL = 1e-3        # resumed vs uninterrupted final loss
+TRAIN_REF_TOL = 3e-2            # card vs CPU: loss, params after a step
+TRAIN_GRAD_TOL = 5e-2           # card vs CPU: each gradient leaf, rel. norm
+WHISPER_TRAIN = (448, 4, 2)     # whisper-base: seq, batch, steps
+
+
+class TrainCounts:
+    """Per-step kernel launches of every Trainer built while it is
+    installed (``train.loop.make_train_step`` wrapped), and the calls of
+    the two plain versions, split by whether autograd's backward made
+    them (``torch._C._current_graph_task_id() != -1``)."""
+
+    def __init__(self):
+        self.steps: list[dict] = []
+        self.plain = {"flash_attention": [0, 0], "ssd_scan": [0, 0]}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import LAUNCHES, ref
+        from repro_torch.models import ssm
+        from repro_torch.train import loop
+
+        self._real = (loop.make_train_step, ref.flash_attention_plain,
+                      ssm.ssd_chunked)
+        real_step = loop.make_train_step
+
+        def make(model, tc):
+            step = real_step(model, tc)
+
+            def counted(*args):
+                before = dict(LAUNCHES)
+                out = step(*args)
+                self.steps.append({k: LAUNCHES.get(k, 0) - before.get(k, 0)
+                                   for k in ("flash_attention", "ssd_scan")})
+                return out
+            return counted
+
+        def plain(name, fn):
+            def call(*args, **kwargs):
+                self.plain[name][int(torch._C._current_graph_task_id()
+                                     != -1)] += 1
+                return fn(*args, **kwargs)
+            return call
+        loop.make_train_step = make
+        ref.flash_attention_plain = plain("flash_attention",
+                                          ref.flash_attention_plain)
+        ssm.ssd_chunked = plain("ssd_scan", ssm.ssd_chunked)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        from repro_torch.models import ssm
+        from repro_torch.train import loop
+        (loop.make_train_step, ref.flash_attention_plain,
+         ssm.ssd_chunked) = self._real
+
+    def check(self, label: str, per_step: dict) -> None:
+        """Every step launched each kernel ``per_step[k]`` times; the plain
+        versions ran only in the backward, once per kernel launch pair."""
+        for i, n in enumerate(self.steps):
+            check(n == per_step, f"train {label}: step {i + 1} launched "
+                  f"{n}, expected {per_step} a step")
+        for k, (outside, inside) in self.plain.items():
+            want = len(self.steps) * per_step[k] // 2
+            check(outside == 0 and inside == want,
+                  f"train {label}: the plain {k} ran {outside} times outside "
+                  f"the backward and {inside} inside, expected 0 and {want}")
+
+
+def train_config(steps: int):
+    """launch.train's optimizer and schedule for ``steps`` steps: lr 3e-4,
+    one warmup step, logged every step."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    return TrainConfig(steps=steps, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+                       opt=AdamWConfig(lr=3e-4, warmup_steps=max(
+                           steps // 10, 1), total_steps=steps))
+
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_split(tr) -> dict:
+    """One more step of ``tr`` by its parts, each between two
+    synchronisations of the card: the forward (``loss_fn``), the backward
+    (``torch.autograd.grad``: the remat recompute, the plain recompute of
+    attention and the scan, the rest), the plain recompute's share of it
+    (``ops._plain_grads`` timed alike), and the optimizer (AdamW and the
+    write-back).  The synchronisations cost a little: the parts add up to
+    slightly more than a step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import loss_fn
+    from repro_torch.optim import adamw_update
+
+    model = tr.model
+    dev = model.device
+    batch = tr.pipeline.next_batch()
+    params = dict(model.named_parameters())
+    plain = {"flash": 0.0, "ssd": 0.0}
+    real = ops._plain_grads
+
+    def timed(fn, inputs, grad_out):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real(fn, inputs, grad_out)
+        torch.cuda.synchronize(dev)
+        plain["flash" if len(inputs) == 3 else "ssd"] += \
+            time.perf_counter() - t0
+        return out
+    ops._plain_grads = timed
+    try:
+        for p in params.values():
+            p.requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss = loss_fn(model.tree(), batch, model.cfg, model.par)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+    finally:
+        ops._plain_grads = real
+        for p in params.values():
+            p.requires_grad_(False)
+    new, tr.state["opt"], _ = adamw_update(params, grads, tr.state["opt"],
+                                           tr.tc.opt)
+    del grads
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(new[k])
+    del new
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    return {"forward": t1 - t0, "backward": t2 - t1,
+            "plain attention": plain["flash"], "plain scan": plain["ssd"],
+            "optimizer": t3 - t2, "loss": float(loss.detach())}
+
+
+def train_hymba(dev) -> dict:
+    """(a) hymba-1.5b at full width and depth: 8 uninterrupted steps
+    through ``launch.train.main`` (seq 4096, batch 2, remat full), a
+    split step and a profiled step; then the same 8 steps with a
+    checkpoint every 2 and a preemption as step 5 starts, resumed by a
+    fresh Trainer from the latest complete checkpoint."""
+    import statistics as st
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.models.parallel import ParallelCfg
+    from repro_torch.train import Trainer
+
+    cfg = configs.get("hymba-1.5b")
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "ssd_scan": 2 * cfg.n_layers}
+    counts = TrainCounts()
+    torch.cuda.synchronize(dev)          # the card's context, if no phase
+    torch.cuda.reset_peak_memory_stats(dev)      # before made it
+    t0 = time.perf_counter()
+    with counts:
+        tr = launch_train.main(["--arch", "hymba-1.5b", "--steps",
+                                str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                                "--batch", str(TRAIN_BATCH), "--device",
+                                str(dev)])
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts.check("hymba-1.5b", per_step)
+    hist = tr.history
+    losses = [m["loss"] for m in hist]
+    check(len(hist) == TRAIN_STEPS and all(
+        math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        for m in hist), f"train hymba-1.5b: a loss or grad norm is not "
+        f"finite: {hist}")
+    check(losses[-1] < losses[0], f"train hymba-1.5b: the loss did not fall "
+          f"({losses})")
+    warm = st.median(m["sec"] for m in hist[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    print(f"train: hymba-1.5b at full width and depth ({n_params / 1e9:.3f}"
+          f" B parameters, f32 with f32 AdamW moments), seq {TRAIN_SEQ} x "
+          f"batch {TRAIN_BATCH}, remat full, {TRAIN_STEPS} steps through "
+          f"launch.train in {run_s:.1f} s: losses "
+          f"{[round(l, 4) for l in losses]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in hist]}; s a step "
+          f"{[round(m['sec'], 3) for m in hist]} (first {hist[0]['sec']:.3f}"
+          f" s, warm median {warm:.3f} s: {tokens / warm:.1f} tokens/s); "
+          f"peak device memory {peak / 2**30:.3f} GiB; each kernel "
+          f"{per_step['flash_attention']} launches a step ({len(counts.steps)}"
+          f" steps), the plain versions {counts.plain['flash_attention'][1]}"
+          f" / {counts.plain['ssd_scan'][1]} calls, all in the backward",
+          flush=True)
+    split = train_split(tr)
+    total = sum(v for k, v in split.items()
+                if k in ("forward", "backward", "optimizer"))
+    print("train: one hymba-1.5b step by its parts (each between two "
+          f"synchronisations; {total:.3f} s in all, loss "
+          f"{split['loss']:.4f}): " + ", ".join(
+              f"{k} {split[k]:.3f} s ({100 * split[k] / total:.1f}%)"
+              for k in ("forward", "backward", "plain attention",
+                        "plain scan", "optimizer"))
+          + " (the plain recompute is part of the backward)", flush=True)
+    batch = tr.pipeline.next_batch()
+    profile_kernels("one hymba-1.5b train step (seq 4096 x 2, remat full)",
+                    lambda: tr.step_fn(tr.state["opt"], tr.state["cstate"],
+                                       batch))
+    del tr, batch
+    free_card()
+
+    class Preempted(Exception):
+        pass
+
+    def bomb(step):
+        if step == TRAIN_FAULT:
+            raise Preempted()
+
+    shape = ShapeCfg("cli", "train", TRAIN_SEQ, TRAIN_BATCH)
+    par = ParallelCfg(remat="full")
+    resumed = TrainCounts()
+    with tempfile.TemporaryDirectory() as ckpt, resumed:
+        t0 = time.perf_counter()
+        first = Trainer(build_model(cfg, dev, seed=0, par=par),
+                        train_config(TRAIN_STEPS), shape=shape,
+                        ckpt_dir=ckpt, fault_hook=bomb, keep=1)
+        check(first.resume() == 0, "train: a fresh checkpoint directory "
+              "resumed at a step")
+        try:
+            first.run()
+            check(False, "train: the fault hook did not raise")
+        except Preempted:
+            pass
+        first.ckpt.wait()          # the async step-4 save, as a crash
+        saved = first.ckpt.all_steps()     # would leave it on disk
+        del first
+        free_card()
+        pre_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = Trainer(build_model(cfg, dev, seed=1, par=par),
+                         train_config(TRAIN_STEPS), shape=shape,
+                         ckpt_dir=ckpt, keep=1)
+        start = second.resume()
+        restore_s = time.perf_counter() - t0
+        check(start == TRAIN_FAULT - 1 and second.pipeline.step == start,
+              f"train: resumed at step {start}, data cursor "
+              f"{second.pipeline.step}, expected {TRAIN_FAULT - 1} (saved: "
+              f"{saved})")
+        t0 = time.perf_counter()
+        after = second.run()
+        rest_s = time.perf_counter() - t0
+        final = after[-1]["loss"]
+        del second
+        free_card()
+    resumed.check("hymba-1.5b preempted and resumed", per_step)
+    err = abs(final - losses[-1]) / abs(losses[-1])
+    check(err <= TRAIN_RESUME_RTOL, f"train: the resumed run ended at loss "
+          f"{final}, the uninterrupted one at {losses[-1]} (rel {err:.3g} > "
+          f"{TRAIN_RESUME_RTOL})")
+    print(f"train: preemption as step {TRAIN_FAULT} started ({TRAIN_FAULT} "
+          f"steps and saves at {TRAIN_CKPT_EVERY}-step intervals, "
+          f"{pre_s:.1f} s; on disk after the crash: steps {saved}); a fresh "
+          f"Trainer with other weights resumed at step {start} in "
+          f"{restore_s:.1f} s and ran to step {TRAIN_STEPS} in {rest_s:.1f} "
+          f"s: final loss {final:.6f} vs the uninterrupted {losses[-1]:.6f} "
+          f"(rel {err:.3g} <= {TRAIN_RESUME_RTOL})", flush=True)
+    launches = {k: sum(n[k] for n in counts.steps + resumed.steps)
+                for k in per_step}
+    return {"launches": launches, "seconds": run_s, "step_s": warm,
+            "peak": peak, "split": split}
+
+
+def train_whisper(dev) -> dict:
+    """(b) whisper-base at full width and depth (6 encoder and 6 decoder
+    layers), two steps at seq 448, batch 4: the encoder's non-causal and
+    the decoder's cross attention through the trainable entry; 36
+    flash_attention launches a step under full remat."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.models.parallel import ParallelCfg
+    from repro_torch.train import Trainer
+
+    cfg = configs.get("whisper-base")
+    seq, batch, steps = WHISPER_TRAIN
+    per_step = {"flash_attention": 2 * (2 * cfg.n_layers
+                                        + cfg.n_encoder_layers),
+                "ssd_scan": 0}
+    counts = TrainCounts()
+    t0 = time.perf_counter()
+    with counts:
+        tr = Trainer(build_model(cfg, dev, seed=0,
+                                 par=ParallelCfg(remat="full")),
+                     train_config(steps),
+                     shape=ShapeCfg("cli", "train", seq, batch))
+        hist = tr.run()
+    wall = time.perf_counter() - t0
+    counts.check("whisper-base", per_step)
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in hist), f"train whisper-base: not finite: {hist}")
+    print(f"train: whisper-base at full width and depth ({cfg.n_encoder_layers}"
+          f" + {cfg.n_layers} layers), seq {seq} x batch {batch}, {steps} "
+          f"steps in {wall:.1f} s (s a step {[round(m['sec'], 3) for m in hist]}"
+          f"), losses {[round(m['loss'], 4) for m in hist]}; flash_attention "
+          f"{per_step['flash_attention']} launches a step (encoder, decoder "
+          f"and cross attention, each twice under full remat), the plain "
+          f"version {counts.plain['flash_attention'][1]} calls, all in the "
+          f"backward", flush=True)
+    launches = {k: sum(n[k] for n in counts.steps) for k in per_step}
+    del tr
+    free_card()
+    return {"launches": launches, "seconds": wall}
+
+
+def train_reference(dev) -> None:
+    """(c) The same weights and batch on the card (the kernels forward,
+    full remat) and on the CPU (the plain versions): hymba-1.5b at full
+    width cut to 2 layers (seq 512, batch 2), and reduced qwen1.5-0.5b,
+    mamba2-370m, qwen3-moe-30b-a3b, whisper-base and llava-next-34b (seq
+    128, batch 2).  The loss within TRAIN_REF_TOL, each gradient leaf
+    within relative Frobenius TRAIN_GRAD_TOL (the worst printed), and the
+    parameters after one AdamW step allclose at TRAIN_REF_TOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.api import Model, build_model
+    from repro_torch.models.common import ShapeCfg
+    from repro_torch.models.parallel import ParallelCfg
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    def to_cpu(t):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in t.items()}
+
+    par = ParallelCfg(remat="full")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=8)
+    cases = [(dataclasses.replace(configs.get("hymba-1.5b"), n_layers=2),
+              512)]
+    cases += [(configs.get(a).reduced(), 128) for a in (
+        "qwen1.5-0.5b", "mamba2-370m", "qwen3-moe-30b-a3b", "whisper-base",
+        "llava-next-34b")]
+    for cfg, seq in cases:
+        t0 = time.perf_counter()
+        card = build_model(cfg, dev, seed=0, par=par)
+        cpu = Model(cfg, to_cpu(card.tree()), par)
+        batch = SyntheticPipeline(cfg, ShapeCfg("t", "train", seq, 2),
+                                  device="cpu").next_batch()
+        lg, gg = card.loss({k: v.to(dev) for k, v in batch.items()})
+        lc, gc_ = cpu.loss(batch)
+        lerr = abs(float(lg) - float(lc))
+        check(math.isfinite(float(lg)) and lerr <= TRAIN_REF_TOL,
+              f"train reference: {cfg.name} loss {float(lg)} on the card, "
+              f"{float(lc)} on the CPU")
+        errs = {k: float((g.cpu() - gc_[k]).norm()
+                         / gc_[k].norm().clamp_min(1e-30))
+                for k, g in gg.items()}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= TRAIN_GRAD_TOL, f"train reference: {cfg.name} "
+              f"gradient {worst} off the CPU's by {errs[worst]:.4g} "
+              f"(relative Frobenius > {TRAIN_GRAD_TOL})")
+        pg = dict(card.named_parameters())
+        pc = dict(cpu.named_parameters())
+        newg, _, _ = adamw_update(pg, gg, adamw_init(pg, opt), opt)
+        newc, _, _ = adamw_update(pc, gc_, adamw_init(pc, opt), opt)
+        perr, pratio = max((allclose_ratio(newg[k].cpu(), newc[k],
+                                           TRAIN_REF_TOL) for k in newc),
+                           key=lambda r: r[1])
+        check(pratio <= 1.0, f"train reference: {cfg.name} parameters after "
+              f"one AdamW step differ by {perr}")
+        print(f"train reference: {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), seq {seq} x 2: loss card {float(lg):.6f} vs "
+              f"CPU {float(lc):.6f} (|diff| {lerr:.3g} <= {TRAIN_REF_TOL}); "
+              f"worst gradient leaf {worst} at {errs[worst]:.4g} (relative "
+              f"Frobenius <= {TRAIN_GRAD_TOL}; {len(errs)} leaves); "
+              f"parameters after one AdamW step max |diff| {perr:.3g} "
+              f"({pratio:.3f} of the {TRAIN_REF_TOL} bound); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del card, cpu, gg, newg
+        free_card()
+
+
+def train_kernel_phase(dev) -> None:
+    """(d) Both kernels at the train shapes (hymba, seq 4096 x batch 2),
+    L2 flushed, CUDA events, median of KERNEL_REPS, beside their bounds,
+    their plain versions and, for attention, SDPA with the window mask;
+    and the trainable entries' backward (autograd through the plain
+    version), which a backward kernel would replace, timed alike (median
+    of 5)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    flush = l2_flush(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((B, 25, S, 64), (B, 5, S, 64), (B, 5, S, 64)))
+    flash_measure("train (hymba, batch 2)", q, k, v, True, 2048,
+                  KERNEL_REPS, flush)
+    x = (0.5 * torch.randn((B, S, 32, 100), generator=g, device=dev)
+         ).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, 32), generator=g,
+                                                  device=dev))
+    A = -torch.exp(0.3 * torch.randn((32,), generator=g, device=dev))
+    Bm, Cm = ((0.5 * torch.randn((B, S, 1, 16), generator=g, device=dev)
+               ).to(torch.bfloat16) for _ in range(2))
+    ssd_measure("train (hymba, batch 2)", x, dt, A, Bm, Cm, 256,
+                KERNEL_REPS, flush)
+
+    def backward(fn, inputs):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        ct = torch.ones_like(out)
+        return lambda: torch.autograd.grad(out, leaves, ct,
+                                           retain_graph=True)
+    flash_bwd = time_cuda(backward(
+        lambda *a: ops.flash_attention_trainable(*a, causal=True,
+                                                 window=2048), (q, k, v)),
+        5, flush)
+    ssd_bwd = time_cuda(backward(
+        lambda *a: ops.ssd_scan_trainable(*a, chunk=256)[0],
+        (x, dt, A, Bm, Cm)), 5, flush)
+    print(f"kernel train backward (hymba's shapes, batch 2): "
+          f"flash_attention_trainable {flash_bwd:.3f} ms, "
+          f"ssd_scan_trainable {ssd_bwd:.3f} ms a backward (the plain "
+          f"version recomputed and differentiated; L2 flushed, median of 5)",
+          flush=True)
+    del q, k, v, x, dt, A, Bm, Cm
+    free_card()
+
+
+def train_path(dev) -> dict:
+    """Phase 18: training (a), (b), (c), (d)."""
+    t0 = time.perf_counter()
+    hymba = train_hymba(dev)
+    whisper = train_whisper(dev)
+    train_reference(dev)
+    train_kernel_phase(dev)
+    print(f"train: phase 18 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": {k: hymba["launches"][k] + whisper["launches"][k]
+                         for k in ("flash_attention", "ssd_scan")},
+            "seconds": hymba["seconds"] + whisper["seconds"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2978,11 +3484,14 @@ def main() -> int:
     sharded = shard_path(dev, structure, learn)
     family = family_path(dev)
     kernels[2]["launches"] += family["launches"].get("flash_attention", 0)
+    train = train_path(dev)
+    kernels[2]["launches"] += train["launches"]["flash_attention"]
+    kernels[3]["launches"] += train["launches"]["ssd_scan"]
 
     paths = {"main": main, "online": online, "serve": serve,
              "forecast": forecast, "structure": structure, "stream": stream,
              "learn": learn, "cluster": cluster, "shard": sharded,
-             "families": family}
+             "families": family, "train": train}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

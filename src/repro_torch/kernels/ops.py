@@ -4,8 +4,16 @@ The counterpart of ``repro.kernels.ops``.  There is no kernel switch: the
 tensor's device decides.  A CUDA tensor goes through the hand-written
 kernel, a CPU tensor through its plain version, with no fallback from one
 to the other.  ``flash_attention`` and ``ssd_scan`` are the kernels' own
-entries (counterparts of the reference's ops of those names); the
-scheduling ops combine their kernel's selection out here.
+entries (counterparts of the reference's ops of those names), forward
+only; the scheduling ops combine their kernel's selection out here.
+
+``flash_attention_trainable`` and ``ssd_scan_trainable`` are the model
+kernels' differentiable entries, which the train mode calls.  The forward
+runs the entry (the kernel on the card, the plain version on the CPU) and
+saves only the inputs.  The backward recomputes the plain version on them
+and returns autograd's gradient of it: the reference trains through
+XLA's autodiff of the same blockwise functions (its Pallas kernels have
+no VJP), and there is no backward kernel.
 """
 from __future__ import annotations
 
@@ -15,13 +23,14 @@ import torch
 
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.objectives import carbon_from_delta, task_durations
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gate_quantile import gate_quantile_stats
 from repro_torch.kernels.schedule_eval import schedule_delta
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = ["population_carbon", "gate_threshold", "flash_attention",
-           "ssd_scan"]
+           "ssd_scan", "flash_attention_trainable", "ssd_scan_trainable"]
 
 
 def population_carbon(inst: PackedInstance, starts: torch.Tensor,
@@ -85,3 +94,74 @@ def gate_threshold(intensity: torch.Tensor, theta, window,
         return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
                            a + diff * gamma)
 
+
+
+def _plain_grads(fn, inputs: tuple, grad_out: torch.Tensor) -> tuple:
+    """Autograd's gradient of ``fn(*inputs)`` against ``grad_out``, on
+    fresh leaves of the saved inputs."""
+    with torch.enable_grad():
+        leaves = tuple(x.detach().requires_grad_(True) for x in inputs)
+        return torch.autograd.grad(fn(*leaves), leaves, grad_out)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, block: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, block)
+        with torch.no_grad():
+            return flash_attention(q.detach(), k.detach(), v.detach(),
+                                   causal, window, block)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, block = ctx.args
+        grads = _plain_grads(
+            lambda q, k, v: ref.flash_attention_plain(q, k, v, causal,
+                                                      window, block),
+            ctx.saved_tensors, grad_out)
+        return (*grads, None, None, None)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        with torch.no_grad():
+            y, h = ssd_scan(x.detach(), dt.detach(), A.detach(),
+                            Bm.detach(), Cm.detach(), chunk)
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        # imported here: the model imports the kernels
+        from repro_torch.models import ssm
+        chunk = ctx.chunk
+        grads = _plain_grads(
+            lambda *a: ssm.ssd_chunked(*a, chunk)[0], ctx.saved_tensors,
+            grad_y)
+        return (*grads, None)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: int = 0, block: int = 2048
+                              ) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient: the kernel's output (the
+    plain version's on the CPU) forward; backward, autograd through
+    :func:`repro_torch.kernels.ref.flash_attention_plain` (blocks of
+    ``block``) recomputed on the saved q, k, v."""
+    return _FlashAttention.apply(q, k, v, causal, window, block)
+
+
+def ssd_scan_trainable(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan` with a gradient in ``y``: the kernel's ``(y,
+    h_final)`` (the plain version's on the CPU) forward; backward,
+    autograd through :func:`repro_torch.models.ssm.ssd_chunked` recomputed
+    on the saved inputs.  ``h_final`` carries no gradient: the train mode
+    drops it."""
+    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)

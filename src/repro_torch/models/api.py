@@ -1,5 +1,6 @@
 """Public model API: ``build_model(cfg)`` -> a :class:`Model` whose
-``prefill`` and ``decode`` run the serve path.
+``loss`` runs the train path and ``prefill`` and ``decode`` the serve
+path.
 
 The counterpart of ``repro.models.api`` for every family (dense, moe, ssm,
 hybrid, encdec) and both stub frontends.  The forwards are plain
@@ -10,9 +11,8 @@ and ``state_dict()`` work, and calls them.  Batch keys follow the
 reference's ``input_specs``: ``tokens`` [B, S] for prefill, with
 ``patch_embeds`` [B, P, D] prepended for the vision stub and
 ``frame_embeds`` [B, S_enc, D] feeding the encoder of an encdec model;
-``token`` [B, 1], ``pos`` (scalar or per-lane [B]) and the stacked caches
-for decode.  ``loss_fn`` comes with the train slice (ROADMAP Queue 1 item
-8(b)).
+the same and ``labels`` [B, S] for train; ``token`` [B, 1], ``pos``
+(scalar or per-lane [B]) and the stacked caches for decode.
 """
 from __future__ import annotations
 
@@ -22,9 +22,10 @@ from torch import nn
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import families
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import (cast, embed_apply, embed_defs,
-                                       logits_apply, matmul_f32, norm_apply, norm_defs,
-                                       sinusoidal_pos, unembed_defs)
+from repro_torch.models.layers import (cast, chunked_ce_loss, embed_apply,
+                                       embed_defs, logits_apply, matmul_f32,
+                                       norm_apply, norm_defs, sinusoidal_pos,
+                                       unembed_defs)
 from repro_torch.models.params import init_params
 from repro_torch.models.parallel import ParallelCfg
 
@@ -74,14 +75,42 @@ def _decode_sinusoid(pos, B: int, d: int, device) -> torch.Tensor:
     return pe
 
 
-def _run_encoder(params, cfg: ArchConfig, par: ParallelCfg, frames):
+def _run_encoder(params, cfg: ArchConfig, par: ParallelCfg, frames,
+                 mode: str = "prefill"):
+    """The encoder over ``frames``.  The train path runs it in ``train``
+    mode, so that its attention has a gradient; the reference runs it in
+    ``prefill`` mode inside its loss too, where the mode only decides the
+    caches (an encoder emits none)."""
     x = frames.to(torch.bfloat16)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(x.shape[1], cfg.d_model, device=x.device)
     x, _, _ = families.stack_apply(
-        params["encoder"], x, cfg, par, mode="prefill",
+        params["encoder"], x, cfg, par, mode=mode,
         n_layers=cfg.n_encoder_layers, causal=False)
     return norm_apply(params["enc_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg
+            ) -> torch.Tensor:
+    """The train forward: mean next-token cross-entropy over the labelled
+    text positions (``labels`` -1 are ignored), plus the MoE routers'
+    load-balancing term ``router_aux_weight * aux / n_layers``."""
+    x = _embed_in(params, cfg, batch)
+    enc = None
+    if cfg.n_encoder_layers:
+        enc = _run_encoder(params, cfg, par, batch["frame_embeds"], "train")
+    x, _, aux = families.stack_apply(
+        params["blocks"], x, cfg, par, mode="train", n_layers=cfg.n_layers,
+        enc=enc)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    if cfg.frontend == "vision_stub":          # loss only on text positions
+        x = x[:, batch["patch_embeds"].shape[1]:]
+    unemb = ({"w": params["embed"]["table"].T} if cfg.tie_embeddings
+             else params["unembed"])
+    loss = chunked_ce_loss(unemb, x, batch["labels"], chunk=par.loss_chunk)
+    if cfg.family == "moe":
+        loss = loss + cfg.router_aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def _caches_out(new_caches: dict) -> dict:
@@ -156,10 +185,11 @@ class _Tree(nn.Module):
 
 
 class Model(_Tree):
-    """The parameter tree of ``cfg`` and its serve forwards.
+    """The parameter tree of ``cfg``, its loss and its serve forwards.
 
-    ``state_dict()`` keys are the reference's tree paths
-    (``blocks.attn.wq``, ``embed.table``, ...).
+    ``state_dict()`` and ``named_parameters()`` keys are the reference's
+    tree paths (``blocks.attn.wq``, ``embed.table``, ...).  The parameters
+    require no gradient outside :meth:`loss`.
     """
 
     def __init__(self, cfg: ArchConfig, params: dict,
@@ -170,6 +200,25 @@ class Model(_Tree):
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """``(loss, grads)`` of ``loss_fn`` on ``batch``, as
+        ``jax.value_and_grad``: the loss detached, the gradients a dict by
+        ``named_parameters()`` name, in its order, float32 like the
+        parameters."""
+        params = dict(self.named_parameters())
+        try:
+            for p in params.values():
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                loss = loss_fn(self.tree(), batch, self.cfg, self.par)
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+        return loss.detach(), dict(zip(params, grads))
 
     @torch.no_grad()
     def prefill(self, batch: dict):

@@ -1,6 +1,7 @@
 """Attention: GQA projections, blockwise attention, KV cache.
 
-The counterpart of ``repro.models.attention`` for the serve path:
+The counterpart of ``repro.models.attention``, for the train and serve
+paths:
 
 * :func:`flash_unrolled` — causal (optionally sliding-window) attention
   for prefill, a Python loop over the q x kv block triangle that skips
@@ -11,7 +12,10 @@ The counterpart of ``repro.models.attention`` for the serve path:
 
   These two are the plain versions of the ``flash_attention`` kernel: the
   CPU runs them, the card runs the kernel (``kernels.ops.flash_attention``
-  picks by the tensor's device);
+  picks by the tensor's device).  The train mode's gradient is autograd
+  through them, recomputed in the backward
+  (``kernels.ops.flash_attention_trainable``), as the reference's is
+  XLA's autodiff of them;
 * :func:`decode_step` — one token against a (ring-buffered) KV cache,
   with a per-lane position; and ``cross_cached``, one token against the
   stored encoder K/V.  Plain torch on both devices, as in the reference,
@@ -237,8 +241,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
                *, mode: str = "prefill", pos=None,
                cache: dict | None = None, kv_x: torch.Tensor | None = None,
                causal: bool = True, q_offset: int = 0):
-    """GQA attention. mode: prefill (full sequence), decode (one token
-    against ``cache`` = {"k","v"} [B,W,KVH,dh] at ``pos``) or
+    """GQA attention. mode: train or prefill (full sequence), decode (one
+    token against ``cache`` = {"k","v"} [B,W,KVH,dh] at ``pos``) or
     ``cross_cached`` (one or more tokens against the precomputed encoder
     K/V in ``cache``, unmasked).
 
@@ -249,17 +253,16 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     returns 0); a non-zero one raises.  Prefill runs through
     ``ops.flash_attention`` (the kernel on the card); a causal
     self-attention prefill emits the KV cache, ring-ordered when windowed
-    so decode's ``pos % W`` lines up.  Returns (out [B,S,D], new_cache or
-    None).
+    so decode's ``pos % W`` lines up.  Train runs the prefill's attention
+    through ``ops.flash_attention_trainable`` and emits no cache.  Returns
+    (out [B,S,D], new_cache or None).
     """
-    if mode not in ("prefill", "decode", "cross_cached"):
-        raise NotImplementedError(
-            f"attention mode {mode!r} comes with the train slice (ROADMAP "
-            "Queue 1 item 8(b))")
+    if mode not in ("train", "prefill", "decode", "cross_cached"):
+        raise ValueError(f"attn_apply: unknown mode {mode!r}")
     if q_offset:
         raise NotImplementedError(
-            f"attn_apply: q_offset={q_offset}; query row 0 sits at key 0 "
-            "(ROADMAP Queue 1 item 8(b))")
+            f"attn_apply: q_offset={q_offset}; query row 0 sits at key 0, "
+            "as the reference's _embed_in always sets it")
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
     B, S, _ = x.shape
@@ -303,18 +306,19 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         pr = torch.softmax(s, dim=-1)
         out = torch.einsum("bkgqw,bwkh->bqkgh", pr.to(vc.dtype).float(),
                            vc.float()).to(x.dtype).reshape(B, S, H, dh)
-    elif not causal:
-        out = ops.flash_attention(_heads_first(q), _heads_first(k),
-                                  _heads_first(v), causal=False,
-                                  block=par.attn_block).transpose(1, 2)
-        if kv_x is not None:
-            new_cache = {"k": k, "v": v}           # cross-attn KV for decode
     else:
-        out = ops.flash_attention(
-            _heads_first(q), _heads_first(k), _heads_first(v), causal=True,
-            window=cfg.attn_window, block=par.attn_block).transpose(1, 2)
+        attend = (ops.flash_attention_trainable if mode == "train"
+                  else ops.flash_attention)
+        out = attend(_heads_first(q), _heads_first(k), _heads_first(v),
+                     causal=causal, window=cfg.attn_window if causal else 0,
+                     block=par.attn_block).transpose(1, 2)
         W = cfg.attn_window
-        if kv_x is None and W and S >= W:
+        if mode == "train":
+            pass                                   # no cache to emit
+        elif not causal:
+            if kv_x is not None:
+                new_cache = {"k": k, "v": v}       # cross-attn KV for decode
+        elif kv_x is None and W and S >= W:
             slots = (S - W + torch.arange(W, device=x.device)) % W
             kc = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype,
                              device=x.device)

@@ -6,9 +6,8 @@ imports JAX only for its input specs).  Every architecture is an
 ``reduced()`` shrinks a config to a CPU-testable size of the same family.
 ``input_specs`` gives the model inputs of one (arch x shape) cell as
 shapes and dtypes (:class:`TensorSpec`, allocating nothing) for the
-prefill and decode kinds; the train kind comes with the train slice
-(ROADMAP Queue 1 item 8(b)).  ``materialize`` builds real tensors of those
-specs on a device.
+train, prefill and decode kinds.  ``materialize`` builds real tensors of
+those specs on a device.
 """
 from __future__ import annotations
 
@@ -200,6 +199,11 @@ def input_specs(cfg: ArchConfig, shape: str | ShapeCfg,
     """Model inputs for one (arch x shape) cell, in the reference's keys
     and order.
 
+    ``train``  : a token and label batch (the stub frontends supply
+                 precomputed embeddings: for the vision stub the first
+                 ``n_frontend_tokens`` of the ``seq`` positions are patch
+                 embeddings; an encdec model's encoder reads ``seq`` frame
+                 embeddings).
     ``prefill``: a request batch of ``seq`` positions (for the vision stub
                  ``n_frontend_tokens`` of them are patch embeddings; an
                  encdec model's encoder reads ``seq`` frame embeddings).
@@ -212,8 +216,16 @@ def input_specs(cfg: ArchConfig, shape: str | ShapeCfg,
     D = cfg.d_model
     i32, bf16 = torch.int32, torch.bfloat16
     if sc.kind == "train":
-        raise NotImplementedError("train input specs come with the train "
-                                  "slice (ROADMAP Queue 1 item 8(b))")
+        if cfg.frontend == "vision_stub":
+            P = cfg.n_frontend_tokens
+            return {"patch_embeds": TensorSpec((B, P, D), bf16),
+                    "tokens": TensorSpec((B, S - P), i32),
+                    "labels": TensorSpec((B, S - P), i32)}
+        specs = {}
+        if cfg.family == "encdec":
+            specs["frame_embeds"] = TensorSpec((B, S, D), bf16)
+        return {**specs, "tokens": TensorSpec((B, S), i32),
+                "labels": TensorSpec((B, S), i32)}
     if sc.kind == "prefill":
         if cfg.frontend == "vision_stub":
             P = cfg.n_frontend_tokens

@@ -1,6 +1,7 @@
 """Per-family block assembly and the layer stack.
 
-The counterpart of ``repro.models.families`` for the serve path:
+The counterpart of ``repro.models.families`` for the train and serve
+paths:
   dense / vlm : attn -> mlp                  (pre-norm residual)
   moe         : attn -> moe ffn (+ aux loss)
   ssm         : mamba2 mixer only (mamba has no separate FFN)
@@ -9,12 +10,17 @@ The counterpart of ``repro.models.families`` for the serve path:
   encdec      : self-attn -> cross-attn -> mlp   (whisper decoder);
                 encoder blocks are non-causal attn -> mlp.
 Parameters are stacked with a leading layer axis, as in the reference;
-:func:`stack_apply` is a Python loop over it (no scan, and no remat, which
-is training: ROADMAP Queue 1 item 8(b)).
+:func:`stack_apply` is a Python loop over it (the reference's
+``scan_layers=False`` path), each layer under the remat policy in train
+mode (:func:`_remat`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
@@ -95,7 +101,8 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         else:
             y, cc = attention.attn_apply(p["cross"], h, cfg, par, mode=mode,
                                          kv_x=enc, causal=False)
-            new_cache["ck"], new_cache["cv"] = cc["k"], cc["v"]
+            if cc is not None:
+                new_cache["ck"], new_cache["cv"] = cc["k"], cc["v"]
         x = x + y
 
     h = norm_apply(p["norm2"], x, kind, eps)
@@ -114,11 +121,54 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The per-layer trees of a stacked tree, as views (one ``unbind`` a
+    leaf: its gradient is one ``stack`` of the layers' gradients, where
+    indexing layer by layer would add a zero-filled [L, ...] tensor a
+    layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree[:n]))
+
+
+# Products with no batch dimensions: what ``dots`` saves, as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, par: ParallelCfg):
+    """``fn`` under the train mode's recompute policy (the counterpart of
+    the reference's ``_remat``): ``none`` keeps every activation; ``full``
+    keeps only the layer's inputs and recomputes its forward in the
+    backward; ``dots`` also keeps the outputs of the products with no
+    batch dims.  ``tp_out`` saves the tensor-parallel all-reduce outputs,
+    which one card does not have: it is not ported."""
+    if par.remat == "none":
+        return fn
+    if par.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if par.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat {par.remat!r}: the port has none, full and "
+                     "dots (tp_out saves tensor-parallel all-reduce outputs; "
+                     "one card has none)")
+
+
 def stack_apply(stacked: dict, x: torch.Tensor, cfg: ArchConfig,
                 par: ParallelCfg, *, mode: str, n_layers: int, pos=None,
                 caches: dict | None = None, causal: bool = True,
                 enc: torch.Tensor | None = None):
-    """Run ``n_layers`` blocks over the stacked param tree, in order.
+    """Run ``n_layers`` blocks over the stacked param tree, in order, each
+    under ``par.remat`` in train mode.
 
     ``caches``: dict of [L, ...] tensors for decode.  ``enc``: the encoder
     output every decoder layer attends to (encdec prefill).  Returns
@@ -128,10 +178,12 @@ def stack_apply(stacked: dict, x: torch.Tensor, cfg: ArchConfig,
     caches = caches if caches is not None else {}
     aux = torch.zeros((), device=x.device)
     outs = []
-    for i in range(n_layers):
-        x, nc, a = block_apply(_layer(stacked, i), x, cfg, par, mode=mode,
-                               pos=pos, cache=_layer(caches, i) or None,
-                               causal=causal, enc=enc)
+    block = functools.partial(block_apply, cfg=cfg, par=par, mode=mode,
+                              pos=pos, causal=causal)
+    if mode == "train":
+        block = _remat(block, par)
+    for i, lp in enumerate(_unstack(stacked, n_layers)):
+        x, nc, a = block(lp, x, cache=_layer(caches, i) or None, enc=enc)
         aux = aux + a
         outs.append(nc)
     new_caches = ({k: torch.stack([o[k] for o in outs]) for k in outs[0]}

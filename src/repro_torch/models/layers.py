@@ -5,7 +5,7 @@ The counterpart of ``repro.models.layers``: ``*_defs(cfg)`` returns a
 ...)`` consumes the materialized tree.  Activations run in bf16 with f32
 norms and softmax; parameters are stored f32 and cast at use, where the
 reference casts.  A product of bf16 operands rounds its f32 sum to bf16,
-as XLA's does.  ``chunked_ce_loss`` comes with the train slice.
+as XLA's does.  ``chunked_ce_loss`` is the train mode's loss.
 """
 from __future__ import annotations
 
@@ -148,3 +148,36 @@ def unembed_defs(d: int, vocab: int) -> dict:
 
 def logits_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, cast(p["w"]))
+
+
+def chunked_ce_loss(unembed: dict, h: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor | None = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy without materialising [B, S, V]: a loop over sequence
+    chunks, as the reference's scan.
+
+    ``h`` [B, S, D] final hidden states; ``labels`` [B, S] integer
+    next-token ids (-1 = ignore).  Returns the mean loss over unmasked
+    positions, float32.  The chunk is ``S // max(S // chunk, 1)``, which
+    must divide S, as the reference's reshape requires.
+    """
+    B, S, _ = h.shape
+    if mask is None:
+        mask = labels >= 0
+    labels = torch.clamp_min(labels, 0).long()
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if chunk * n_chunks != S:
+        raise ValueError(f"chunked_ce_loss: {n_chunks} chunks of {chunk} "
+                         f"do not cover S={S}")
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for c0 in range(0, S, chunk):
+        logits = logits_apply(unembed, h[:, c0:c0 + chunk])   # [B, c, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None])[..., 0]
+        mx = mask[:, c0:c0 + chunk]
+        tot = tot + torch.where(mx, lse - gold, 0.0).sum()
+        cnt = cnt + mx.sum()
+    return tot / torch.clamp_min(cnt, 1).to(torch.float32)

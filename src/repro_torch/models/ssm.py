@@ -7,7 +7,9 @@ chunk the recurrence is a masked quadratic form, and a scan over chunk
 
 :func:`ssd_chunked` is the plain version of the ``ssd_scan`` kernel: the
 CPU runs it, the card runs the kernel (``kernels.ops.ssd_scan`` picks by
-the tensor's device).  :func:`ssd_ref` is the sequential oracle.  The
+the tensor's device).  The train mode's gradient is autograd through it,
+recomputed in the backward (``kernels.ops.ssd_scan_trainable``), as the
+reference's is XLA's autodiff of it.  :func:`ssd_ref` is the sequential oracle.  The
 depthwise conv is K shifted multiplies, and the decode conv keeps the
 reference's ordered shift-sum, so the prefill-to-decode conv handoff
 rounds identically.
@@ -160,13 +162,12 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
               *, mode: str = "prefill", state: dict | None = None):
     """Mamba2 mixer. x [B,S,D]. mode prefill: full-sequence chunked SSD
-    through ``ops.ssd_scan``; decode: one step against ``state`` =
-    {"h": [B,H,P,N] f32, "conv": [B,K-1, di+2GN]}.  Returns
-    (y, new_state)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"ssm mode {mode!r} comes with the train slice (ROADMAP Queue 1 "
-            "item 8(b))")
+    through ``ops.ssd_scan``; train: the same through
+    ``ops.ssd_scan_trainable``, with no state emitted; decode: one step
+    against ``state`` = {"h": [B,H,P,N] f32, "conv": [B,K-1, di+2GN]}.
+    Returns (y, new_state), new_state ``{}`` in train mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"ssm_apply: unknown mode {mode!r}")
     Bsz, S, D = x.shape
     di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     Pd, K = cfg.ssm_headdim, cfg.ssm_conv
@@ -192,7 +193,8 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         xin, bc = conv_out[..., :di], conv_out[..., di:]
         new_conv = full[:, 1:]
     else:
-        new_conv = torch.cat([xin, bc], -1)[:, S - K + 1:]  # tail for decode
+        if mode == "prefill":                    # pre-conv tail for decode
+            new_conv = torch.cat([xin, bc], -1)[:, S - K + 1:]
         xin = silu(_causal_conv(xin, p["conv_x"], p["conv_bias_x"]))
         bc = silu(_causal_conv(bc, p["conv_bc"], p["conv_bias_bc"]))
 
@@ -213,10 +215,10 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         y = torch.einsum("bhpn,bhn->bhp", h, Ct)
         y = y[:, None].to(x.dtype)                         # [B,1,H,P]
     else:
-        y, h = ops.ssd_scan(xh.contiguous(), dt.contiguous(), A,
-                            Bm.contiguous(), Cm.contiguous(),
-                            chunk=cfg.ssm_chunk)
-    new_state = {"h": h, "conv": new_conv}
+        scan = ops.ssd_scan_trainable if mode == "train" else ops.ssd_scan
+        y, h = scan(xh.contiguous(), dt.contiguous(), A, Bm.contiguous(),
+                    Cm.contiguous(), chunk=cfg.ssm_chunk)
+    new_state = {} if mode == "train" else {"h": h, "conv": new_conv}
 
     y = y + xh * cast(p["Dskip"])[:, None]
     y = y.reshape(Bsz, S, di)

@@ -205,7 +205,7 @@ def test_cross_attention_prefill_and_cached_decode(whisper):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", configs.ALL_ARCHS)
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_input_specs_match_reference(arch, shape):
     for cfg, jcfg in ((configs.get(arch), J_ARCHS[arch]),
                       (configs.get(arch).reduced(), J_ARCHS[arch].reduced())):
@@ -214,11 +214,6 @@ def test_input_specs_match_reference(arch, shape):
         assert list(got) == list(want)
         for k, s in want.items():
             assert got[k] == TensorSpec(s.shape, getattr(torch, str(s.dtype)))
-
-
-def test_train_specs_come_with_the_train_slice():
-    with pytest.raises(NotImplementedError, match="8\\(b\\)"):
-        input_specs(configs.get("whisper-base"), "train_4k")
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])

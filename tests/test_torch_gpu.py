@@ -899,3 +899,97 @@ def test_sharded_entries_on_card(cuda):
     one = train_gate(*args, device=cuda)
     two = shard.train_sharded(*args, devices=[cuda] * 2)
     assert all(_same_bits(x, y) for x, y in zip(one[:5], two[:5]))
+
+
+# ---------------------------------------------------------------------------
+# The train path: the model kernels' trainable entries (the kernel forward,
+# autograd through the plain version backward) and a train step card vs
+# CPU.
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, ct):
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    out.backward(ct)
+    return out.detach(), [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("H,KVH,Sq,Skv,causal,window,dtype", [
+    (4, 2, 300, 300, True, 100, torch.bfloat16),     # causal, window
+    (4, 2, 300, 300, True, 100, torch.float32),
+    (4, 4, 200, 200, False, 0, torch.bfloat16),      # non-causal encoder
+    (4, 2, 120, 300, False, 0, torch.bfloat16),      # cross, Sq != Skv
+])
+def test_flash_attention_trainable_on_card(cuda, H, KVH, Sq, Skv, causal,
+                                           window, dtype):
+    """The forward launches the kernel once and is allclose to the plain
+    version (2e-5 / 2e-2, float32 / bf16); the gradients in q, k and v
+    are autograd's through the plain version, at the same tolerance."""
+    from repro_torch.kernels.ref import flash_attention_plain
+    q, k, v = _flash_case(cuda, 2, H, KVH, Sq, Skv, 64, dtype, seed=5)
+    ct = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(6)).to(dtype)
+    reset_launches()
+    out, got = _grads(lambda *a: ops.flash_attention_trainable(
+        *a, causal=causal, window=window, block=128), (q, k, v), ct)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("flash_attention") == 1
+    want_out, want = _grads(lambda *a: flash_attention_plain(
+        *a, causal, window, 128), (q, k, v), ct)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol,
+                               rtol=tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    assert LAUNCHES.get("flash_attention") == 1
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk,dtype", [
+    (300, 4, 100, 1, 16, 128, torch.bfloat16),
+    (128, 4, 32, 2, 16, 32, torch.float32),
+])
+def test_ssd_scan_trainable_on_card(cuda, S, H, P, G, N, chunk, dtype):
+    """The forward launches the kernel once and is allclose to the plain
+    version (3e-4 / 3e-2); the gradients of y in x, dt, A, B and C are
+    autograd's through ``ssd_chunked``, at the same tolerance."""
+    from repro_torch.models.ssm import ssd_chunked
+    args = _ssd_case(cuda, 2, S, H, P, G, N, dtype, seed=7)
+    ct = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(8)).to(dtype)
+    reset_launches()
+    y, got = _grads(lambda *a: ops.ssd_scan_trainable(*a, chunk=chunk)[0],
+                    args, ct)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("ssd_scan") == 1
+    yw, want = _grads(lambda *a: ssd_chunked(*a, chunk)[0], args, ct)
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(y.float(), yw.float(), atol=tol, rtol=tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+def test_reduced_hymba_train_step_card_equals_cpu(cuda):
+    """The reduced hybrid's loss and gradients on the card (the kernels
+    forward, under full remat) against the same weights and batch on the
+    CPU: the loss within 3e-2, every gradient leaf within relative
+    Frobenius 5e-2; each kernel launched twice a layer."""
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import materialize
+    from repro_torch.models.parallel import ParallelCfg
+    cfg = configs.get("hymba-1.5b").reduced()
+    par = ParallelCfg(remat="full")
+    card = build_model(cfg, cuda, seed=1, par=par)
+    cpu = build_model(cfg, "cpu", seed=1, par=par)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = materialize(cfg, "train_4k", seq=128, device="cpu")
+    reset_launches()
+    lg, gg = card.loss({k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("flash_attention") == LAUNCHES.get("ssd_scan") == \
+        2 * cfg.n_layers
+    lc, gc = cpu.loss(batch)
+    assert abs(float(lg) - float(lc)) <= 3e-2
+    for k, g in gg.items():
+        err = float((g.cpu() - gc[k]).norm() / gc[k].norm())
+        assert err <= 5e-2, (k, err)

@@ -94,7 +94,15 @@ def test_guard_sees_the_whole_port():
             port / "shard" / "train.py",
             port / "models" / "moe.py",
             port / "models" / "common.py",
-            port / "launch" / "serve.py"} <= set(PORT_FILES)
+            port / "launch" / "serve.py",
+            port / "launch" / "train.py",
+            port / "optim" / "compress.py",
+            port / "data" / "__init__.py",
+            port / "data" / "pipeline.py",
+            port / "checkpoint" / "__init__.py",
+            port / "checkpoint" / "manager.py",
+            port / "train" / "__init__.py",
+            port / "train" / "loop.py"} <= set(PORT_FILES)
     assert {port / "configs" / f"{m.__name__.rsplit('.', 1)[1]}.py"
             for m in configs._MODULES} <= set(PORT_FILES)
     assert len(configs._MODULES) == 10
