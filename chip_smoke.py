@@ -186,13 +186,32 @@ non-zero exit code if it fails:
     (the worst printed), the parameters after one AdamW step allclose at
     3e-2; (d) both kernels at the train shapes (batch 2 x 4096) against
     their plain versions, timed beside their bounds, the plain versions,
-    SDPA with the window mask, and the trainable entries' backward.
+    SDPA with the window mask, and the trainable entries' backward;
+19. dryrun — the meta-device dry run (``launch.dryrun``) against the
+    card: phase 18's cell (hymba-1.5b at full width and depth, seq 4096 x
+    2, remat full), one step counted by ``launch.op_analysis`` on
+    ``meta`` and on the card, FLOPs and bytes equal (the ops that differ
+    printed if not), parameter and moment bytes equal to the dry run's,
+    the meta peak within 10% of ``max_memory_allocated`` (64 launches of
+    each model kernel counted); a warm step's achieved vs roofline; then
+    qwen3-moe-30b-a3b decode_32k on ``meta`` alone: status ok, and it
+    does not fit the card; and the kernel entries' cost hook timed with
+    nothing counting;
+20. probe — ``perf.perf_probe`` on the card: the four pinned cells
+    (dispatch sweep, gate learner, fitness, gate) timed cold and warm,
+    each roofline column finite; the record passes
+    ``perf_gate.check_provenance``; the verdict against the committed
+    ``torch_perf_baseline.json`` is printed, not acted on.
 
+Every kernel bound comes from the kernel module's own ``cost`` formula at
+the card's rates (``kernels.cost``).  A line gives each phase's seconds.
 The last four lines are each kernel's launches on each path, the
-``kernels`` JSON record (launches: the main path's; ``flash_attention``'s
-the serve path's, the families' and the train path's; ``ssd_scan``'s the
-serve path's and the train path's), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+``kernels`` JSON record (launches:
+the main path's, the dry run's and the probe's; ``gate_quantile``'s the
+online path's and the probe's; ``flash_attention``'s the serve path's,
+the families', the train path's and the dry run's; ``ssd_scan``'s the
+serve path's, the train path's and the dry run's), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -210,10 +229,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
-FP32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
-BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
-TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 tensor-core rate
 INSTANCES = 1000                # the paper's batch size
 KERNEL_REPS = 20
 ORACLE_INSTANCES = 16           # online cells held to the numpy oracle
@@ -294,9 +309,21 @@ def l2_flush(dev):
     return scratch.zero_
 
 
+def kernel_bound(kernel, *args) -> tuple[float, str, int]:
+    """``(ms, bound_by, bytes)``: the least time the card could take for
+    one call of ``kernel`` (a module of ``repro_torch.kernels``) on
+    ``args``, from the kernel's own ``cost`` formula at its peak rate and
+    the card's memory rate (``kernels.cost``)."""
+    from repro_torch.kernels.cost import bound_s
+    flops, moved = kernel.cost(*args)
+    seconds, by = bound_s(flops, moved, kernel.PEAK_FLOPS)
+    return seconds * 1e3, by, moved
+
+
 def kernel_phase(dev) -> dict:
     """schedule_delta vs schedule_delta_ref, bitwise, and their times."""
     import torch
+    from repro_torch.kernels import schedule_eval
     from repro_torch.kernels.ref import schedule_delta_ref
     from repro_torch.kernels.schedule_eval import schedule_delta
 
@@ -347,9 +374,7 @@ def kernel_phase(dev) -> dict:
                    flush)
     plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, cum),
                          KERNEL_REPS, flush)
-    n = start.numel()
-    moved = n * (4 + 4 + 4) + cum.numel() * 4   # start, dur in; out; cum
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by, moved = kernel_bound(schedule_eval, start, dur, cum)
     print(f"kernel schedule_delta main shape: {ms:.4f} ms (L2 flushed), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({moved / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
@@ -359,7 +384,7 @@ def kernel_phase(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/schedule_eval.cu",
             "replaces": "src/repro/kernels/schedule_eval.py:76",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def gate_cases(dev) -> dict:
@@ -472,7 +497,7 @@ def gate_kernel_phase(dev) -> dict:
                   f"{mw}, windows {window.tolist()}): bitwise equal to the "
                   "plain version on the card and on the CPU", flush=True)
             continue
-        t = gate_timing(name, inten, theta, window, mw, want[2], flush,
+        t = gate_timing(name, inten, theta, window, mw, flush,
                         KERNEL_REPS if name == "main" else 5)
         if name == "main":
             print_device_ms("gate_quantile main", lambda: gate_quantile_stats(
@@ -484,13 +509,15 @@ def gate_kernel_phase(dev) -> dict:
     return record
 
 
-def gate_timing(name, inten, theta, window, mw, n, flush, reps) -> dict:
+def gate_timing(name, inten, theta, window, mw, flush, reps) -> dict:
     """Times of gate_quantile, its plain version and torch.nanquantile over
-    NaN-padded windows (CUDA events, L2 flushed) beside the kernel's bound:
-    the bytes it moves at 3.35 TB/s, or a linear-time selection's
-    compares (2 per valid slot, ``n`` the valid counts) at 67 T/s."""
+    NaN-padded windows (CUDA events, L2 flushed) beside the kernel's bound
+    (``gate_quantile.cost``): the bytes it moves at 3.35 TB/s, or a
+    linear-time selection's compares (2 per valid slot) at 67 T/s."""
     import torch
+    from repro_torch.kernels import gate_quantile
     from repro_torch.kernels.gate_quantile import gate_quantile_stats
+    from repro_torch.kernels.cost import HBM_BW
     from repro_torch.kernels.ref import gate_quantile_stats_ref
 
     R, E = inten.shape
@@ -505,12 +532,11 @@ def gate_timing(name, inten, theta, window, mw, n, flush, reps) -> dict:
     library_ms = time_cuda(lambda: torch.nanquantile(padded, q, dim=-1),
                            reps, flush)
     del padded
-    moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
-    ops = 2 * int(n.sum())        # a linear-time selection's
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    ops, moved = gate_quantile.cost(inten, theta, window, mw)
+    bytes_ms = moved / HBM_BW * 1e3
+    ops_ms = ops / gate_quantile.PEAK_FLOPS * 1e3
+    bound_ms, bound_by, _ = kernel_bound(gate_quantile, inten, theta,
+                                         window, mw)
     print(f"kernel gate_quantile {name} (R={R}, E={E}, max_window={mw}): "
           f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
           f"flushed), plain {plain_ms:.4f} ms, torch.nanquantile over "
@@ -934,7 +960,9 @@ def flash_measure(name: str, q, k, v, causal: bool, window: int,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.kernels.cost import HBM_BW
 
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dev = q.device
     got = flash_attention(q, k, v, causal, window)
     want = flash_attention_plain(q, k, v, causal, window)
@@ -948,13 +976,11 @@ def flash_measure(name: str, q, k, v, causal: bool, window: int,
     B, H, Sq, dh = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     i = torch.arange(Sq, device=dev)
-    live = torch.minimum(i + 1, torch.full_like(i, window or Sq)) \
-        if causal else torch.full_like(i, Skv)
-    ops = 4 * dh * int(live.sum()) * B * H      # QK^T and PV, 2 flops
-    moved = 2 * (2 * q.numel() + 2 * k.numel())  # q, k, v in; o out
-    ops_ms = ops / BF16_OPS_PER_S * 1e3
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    live = fa.live_pairs(Sq, Skv, causal, window)
+    ops, moved = fa.cost(q, k, v, causal, window)
+    ops_ms = ops / fa.PEAK_FLOPS * 1e3
+    bytes_ms = moved / HBM_BW * 1e3
+    bound_ms, bound_by, _ = kernel_bound(fa, q, k, v, causal, window)
     ms = time_cuda(lambda: flash_attention(q, k, v, causal, window),
                    reps, flush)
     plain_ms = time_cuda(
@@ -979,7 +1005,7 @@ def flash_measure(name: str, q, k, v, causal: bool, window: int,
           f"{ms:.4f} ms (L2 flushed, median of {reps}), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention ({how}) "
           f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({ops / 1e9:.3f} GFLOP over {int(live.sum()) * B * H / 1e6:.3f}"
+          f"({ops / 1e9:.3f} GFLOP over {live * B * H / 1e6:.3f}"
           f" M live pairs at 989 TFLOP/s = {ops_ms:.6f} ms; "
           f"{moved / 1e6:.3f} MB at 3.35 TB/s = {bytes_ms:.6f} ms); "
           f"achieved {ops / ms / 1e9:.1f} TFLOP/s against the bound's "
@@ -987,7 +1013,7 @@ def flash_measure(name: str, q, k, v, causal: bool, window: int,
           flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": library_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_by": bound_by}
 
 
 def flash_kernel_phase(dev) -> dict:
@@ -1055,9 +1081,11 @@ def ssd_measure(name: str, x, dt, A, Bm, Cm, chunk: int, reps: int,
     plain version's; no one PyTorch call computes the scan, so there is
     no library time."""
     import torch
-    from repro_torch.models.ssm import ssd_chunked
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.cost import HBM_BW
+    from repro_torch.models.ssm import ssd_chunked
 
+    ssd_mod = importlib.import_module("repro_torch.kernels.ssd_scan")
     y, h = ssd_scan(x, dt, A, Bm, Cm, chunk)
     yr, hr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
@@ -1072,17 +1100,10 @@ def ssd_measure(name: str, x, dt, A, Bm, Cm, chunk: int, reps: int,
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, S)
-    full, rest = divmod(S, Q)
-    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
-    # C.B over the causal pairs once per group (it does not depend on
-    # the head); per head M.x over the pairs, the state update and the
-    # inflow.
-    ops = B * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * S * P * N))
-    moved = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * Bm.numel() * 2
-             + A.numel() * 4 + h.numel() * 4)
-    ops_ms = ops / TF32_OPS_PER_S * 1e3
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    ops, moved = ssd_mod.cost(x, dt, A, Bm, Cm, chunk)
+    ops_ms = ops / ssd_mod.PEAK_FLOPS * 1e3
+    bytes_ms = moved / HBM_BW * 1e3
+    bound_ms, bound_by, _ = kernel_bound(ssd_mod, x, dt, A, Bm, Cm, chunk)
     ms = time_cuda(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk), reps, flush)
     plain_ms = time_cuda(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk),
                          reps, flush)
@@ -1099,7 +1120,7 @@ def ssd_measure(name: str, x, dt, A, Bm, Cm, chunk: int, reps: int,
           flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": None,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_by": bound_by}
 
 
 def ssd_kernel_phase(dev) -> dict:
@@ -1155,6 +1176,7 @@ def forecast_kernel_phase(dev) -> None:
     from repro_torch.core.solvers.common import TorchDraws
     from repro_torch.core.solvers.rolling import forecast_cum
     from repro_torch.forecast.rolling import n_replans, rolling_forecasts
+    from repro_torch.kernels import gate_quantile, schedule_eval
     from repro_torch.kernels.gate_quantile import gate_quantile_stats
     from repro_torch.kernels.ref import (gate_quantile_stats_ref,
                                          schedule_delta_ref)
@@ -1184,9 +1206,8 @@ def forecast_kernel_phase(dev) -> None:
                    flush)
     plain_ms = time_cuda(
         lambda: gate_quantile_stats_ref(inten, theta, window, mw), 5, flush)
-    moved = R * E * (4 + 4) + R * 4 + R * E * (4 + 4 + 4)
-    bound_ms = max(moved / HBM_BYTES_PER_S, 2 * int(want[2].sum())
-                   / FP32_OPS_PER_S) * 1e3
+    bound_ms, _, moved = kernel_bound(gate_quantile, inten, theta, window,
+                                      mw)
     print(f"kernel gate_quantile rolling shape {tuple(points.shape)} (R={R}"
           f", E={E}, window {mw}, theta {bench.FC_THETA}): bitwise equal to "
           f"the plain version; {ms:.4f} ms (L2 flushed), plain "
@@ -1211,11 +1232,11 @@ def forecast_kernel_phase(dev) -> None:
                    flush)
     plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, cum),
                          KERNEL_REPS, flush)
-    moved = start.numel() * 12 + cum.numel() * 4
+    bound_ms, _, moved = kernel_bound(schedule_eval, start, dur, cum)
     print(f"kernel schedule_delta MPC shape {shape} (one forecast cum of "
           f"{E + 1} per (instance, seed)): bitwise equal to the plain "
           f"version; {ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, "
-          f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"bound {bound_ms:.6f} ms "
           f"({moved / 1e6:.2f} MB at 3.35 TB/s)", flush=True)
 
 
@@ -1547,7 +1568,7 @@ def stream_gate_phase(dev, knobs, rate) -> None:
         check(all(same_bits(x, y) for x, y in zip(got, want)),
               f"gate_quantile != gate_quantile_stats_ref at the {name} "
               f"shape {tuple(rows.shape)}")
-        gate_timing(name, rows, theta, window, cfg.window, want[2], flush,
+        gate_timing(name, rows, theta, window, cfg.window, flush,
                     KERNEL_REPS)
 
 
@@ -1855,7 +1876,7 @@ def learn_gate_phase(dev) -> None:
           "bitwise equal to sorted_windows + quantile_threshold on the "
           f"card (|grad| max {float(g_k.abs().max()):.4f})", flush=True)
     window = torch.full(inten.shape[:1], 48, dtype=torch.int32, device=dev)
-    gate_timing("learn", inten, torch.sigmoid(raw), window, 48, n,
+    gate_timing("learn", inten, torch.sigmoid(raw), window, 48,
                 l2_flush(dev), KERNEL_REPS)
 
 
@@ -2223,6 +2244,7 @@ def cluster_kernel_phase(dev) -> None:
     import torch
     from repro_torch import bench
     from repro_torch.cluster.executor import PLAN_SA, RESOLVE_SA
+    from repro_torch.kernels import schedule_eval
     from repro_torch.kernels.ref import schedule_delta_ref
     from repro_torch.kernels.schedule_eval import schedule_delta
 
@@ -2249,11 +2271,11 @@ def cluster_kernel_phase(dev) -> None:
                        flush)
         plain_ms = time_cuda(lambda: schedule_delta_ref(start, dur, c),
                              KERNEL_REPS, flush)
-        moved = start.numel() * 12 + c.numel() * 4
+        bound_ms, _, moved = kernel_bound(schedule_eval, start, dur, c)
         print(f"kernel schedule_delta cluster {label} shape {shape} (H={H}): "
               f"bitwise equal to the plain version; {ms:.4f} ms (L2 "
               f"flushed), plain {plain_ms:.4f} ms, bound "
-              f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms ({moved / 1e3:.1f} kB"
+              f"{bound_ms:.6f} ms ({moved / 1e3:.1f} kB"
               " at 3.35 TB/s)", flush=True)
         print_device_ms(f"schedule_delta cluster {label} shape",
                         lambda: schedule_delta(start, dur, c),
@@ -3429,6 +3451,225 @@ def train_path(dev) -> dict:
             "seconds": hymba["seconds"] + whisper["seconds"]}
 
 
+DRYRUN_ARCH = "hymba-1.5b"      # phase 18's cell: seq 4096 x batch 2, remat
+DRYRUN_PEAK_BAND = 0.10         # meta peak vs max_memory_allocated, relative
+DRYRUN_MOE = ("qwen3-moe-30b-a3b", "decode_32k")   # a cell only meta holds
+
+
+def op_table_diff(a: dict, b: dict, limit: int = 20) -> list:
+    """The ops whose ``[calls, flops, bytes]`` differ between two
+    ``CostMode.ops`` tables."""
+    keys = sorted(set(a) | set(b))
+    return [(k, a.get(k), b.get(k)) for k in keys
+            if a.get(k) != b.get(k)][:limit]
+
+
+def hook_cost(dev, calls: int = 20000) -> None:
+    """The host cost of the kernel entries' cost hook with nothing
+    counting: a ``schedule_delta`` call's host time on the card (launches
+    queued, not waited for) beside the hook's test alone."""
+    import timeit
+
+    import torch
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.schedule_eval import schedule_delta
+
+    check(not kcost.ACTIVE, f"a count is still active: {kcost.ACTIVE}")
+    start = torch.zeros((1, 4, 8), dtype=torch.int32, device=dev)
+    dur = torch.ones_like(start)
+    cum = torch.zeros((1, 65), device=dev)
+    schedule_delta(start, dur, cum)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        schedule_delta(start, dur, cum)
+    entry_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize(dev)
+    hook_us = timeit.timeit("if kcost.ACTIVE: pass", number=calls,
+                            globals={"kcost": kcost}) / calls * 1e6
+    print(f"dryrun: the kernel entries' cost hook, nothing counting: a "
+          f"schedule_delta call {entry_us:.3f} us on the host ({calls} "
+          f"calls, launches queued), the hook's test {hook_us:.4f} us of it",
+          flush=True)
+
+
+def dryrun_path(dev) -> dict:
+    """Phase 19: the meta-device dry run against the card.
+
+    (a) hymba-1.5b at full width and depth, one ``make_train_step`` step
+    at seq 4096 x batch 2, remat full (phase 18's cell), counted by
+    ``launch.op_analysis`` on ``meta`` and then on the card: FLOPs and
+    bytes equal, parameter and moment bytes equal to the dry run's
+    analytic ones, the meta peak within 10% of the card's
+    ``max_memory_allocated`` for the step; a warm step's achieved vs
+    roofline at the card's constants.  (b) qwen3-moe-30b-a3b decode_32k
+    on ``meta`` for the one-card mesh: status ok (the MoE dispatch runs
+    on ``meta``), and the record says it does not fit the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.roofline import achieved_vs_roofline
+    from repro_torch.models.common import ShapeCfg
+
+    t0 = time.perf_counter()
+    cfg = configs.get(DRYRUN_ARCH)
+    sc = ShapeCfg("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mesh = MeshShape.card()
+    overrides = {"remat": "full"}
+    rec = dryrun.run_cell(DRYRUN_ARCH, sc, mesh, overrides=overrides)
+    check(rec["status"] == "ok", f"dry run of {DRYRUN_ARCH} at {sc}: "
+          f"{rec.get('error')}")
+    policy = dryrun.cell_policy(cfg, sc, mesh, overrides)
+    check(policy["microbatches"] == 1, f"policy {policy} splits the step")
+    meta_cost, meta_mem, meta_s = rec["cost_total"], rec["memory"], \
+        rec["total_s"]
+
+    free_card()
+    cell = dryrun.build_cell(cfg, sc, policy, device=dev, seed=0)
+    p_bytes = sum(p.untyped_storage().nbytes()
+                  for p in cell.model.parameters())
+    m_bytes = sum(x.untyped_storage().nbytes()
+                  for x in (*cell.opt_state.m.values(),
+                            *cell.opt_state.v.values()))
+    check(p_bytes == rec["param_bytes_per_device"]
+          and m_bytes == rec["moment_bytes_per_device"],
+          f"dry run: parameter / moment bytes {rec['param_bytes_per_device']}"
+          f" / {rec['moment_bytes_per_device']}, the card's tensors "
+          f"{p_bytes} / {m_bytes}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launches()
+    t1 = time.perf_counter()
+    card_cost, card_mem, card_mode = dryrun.count_cell(cell)
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t1
+    counted = dict(LAUNCHES)
+    card_peak = (torch.cuda.max_memory_allocated(dev) - base
+                 + card_mem["argument_bytes"])
+    if (meta_cost["flops"], meta_cost["bytes"]) != \
+            (card_cost["flops"], card_cost["bytes"]):
+        _, _, meta_mode = dryrun.count_cell(dryrun.build_cell(cfg, sc,
+                                                              policy))
+        check(False, f"dry run: meta counts {meta_cost['flops']:.0f} FLOPs "
+              f"/ {meta_cost['bytes']:.0f} bytes, the card's "
+              f"{card_cost['flops']:.0f} / {card_cost['bytes']:.0f}; ops "
+              "that differ (op, meta, card): "
+              f"{op_table_diff(meta_mode.ops, card_mode.ops)}")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "ssd_scan": 2 * cfg.n_layers}
+    check({k: counted.get(k, 0) for k in want} == want,
+          f"dry run: the counted card step launched {counted}, expected "
+          f"{want}")
+    meta_peak = meta_mem["argument_bytes"] + meta_mem["temp_bytes"]
+    ratio = meta_peak / card_peak
+    print(f"dryrun: {DRYRUN_ARCH} {sc}, one step: meta "
+          f"{meta_cost['flops']:.6e} FLOPs, {meta_cost['bytes']:.6e} bytes "
+          f"(the dry run's cell in {meta_s:.1f} s); the card's equal "
+          f"({card_s:.1f} s counted, {counted}); "
+          f"parameters {p_bytes} B and moments {m_bytes} B equal to the "
+          f"dry run's; peak: meta {meta_peak / 2**30:.3f} GiB (arguments "
+          f"{meta_mem['argument_bytes'] / 2**30:.3f}), the card's "
+          f"{card_peak / 2**30:.3f} GiB (max_memory_allocated above "
+          f"{(base - card_mem['argument_bytes']) / 2**30:.3f} GiB held "
+          f"before), ratio {ratio:.4f}; the tracker on the card "
+          f"{(card_mem['argument_bytes'] + card_mem['temp_bytes']) / 2**30:.3f}"
+          " GiB", flush=True)
+    check(abs(ratio - 1.0) <= DRYRUN_PEAK_BAND,
+          f"dry run: meta peak {meta_peak} B is {ratio:.4f} x the card's "
+          f"{card_peak} B, outside 1 +- {DRYRUN_PEAK_BAND}")
+    warms = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        cell.fn(*cell.args)
+        torch.cuda.synchronize(dev)
+        warms.append(time.perf_counter() - t1)
+    roof = achieved_vs_roofline(meta_cost, min(warms))
+    print(f"dryrun roofline: {DRYRUN_ARCH} {sc}, a warm step "
+          f"{min(warms):.4f} s (of {[round(w, 4) for w in warms]}): "
+          f"{roof['achieved_flops_per_s'] / 1e12:.2f} TFLOP/s, "
+          f"{roof['achieved_bytes_per_s'] / 1e12:.3f} TB/s of op bytes; "
+          f"bound {roof['roofline_bound_s']:.4f} s ({roof['dominant']}: "
+          f"{roof['roofline_compute_s']:.4f} s compute, "
+          f"{roof['roofline_memory_s']:.4f} s unfused bytes), "
+          f"{roof['roofline_frac']:.4f} of it; card {nvidia_smi()}",
+          flush=True)
+    launches = dict(LAUNCHES)
+    del cell
+    free_card()
+
+    arch, shape = DRYRUN_MOE
+    moe = dryrun.run_cell(arch, shape, mesh)
+    check(moe["status"] == "ok", f"dry run of {arch} x {shape}: "
+          f"{moe.get('error')}")
+    peak = moe["memory"]["argument_bytes"] + moe["memory"]["temp_bytes"]
+    check(moe["fits"] is False and peak > moe["hbm_bytes"],
+          f"dry run: {arch} x {shape} peak {peak} B said to fit "
+          f"{moe['hbm_bytes']} B")
+    print(f"dryrun: {arch} x {shape} on meta in {moe['total_s']} s: "
+          f"{moe['flops']:.4e} FLOPs; bf16 weights "
+          f"{moe['param_bytes_per_device'] / 1e9:.2f} GB, arguments "
+          f"{moe['memory']['argument_bytes'] / 1e9:.1f} GB, peak "
+          f"{peak / 1e9:.1f} GB against the card's "
+          f"{moe['hbm_bytes'] / 1e9:.0f} GB: does not fit", flush=True)
+    hook_cost(dev)
+    seconds = time.perf_counter() - t0
+    print(f"dryrun: phase 19 in {seconds:.1f} s", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
+def probe_path(dev) -> dict:
+    """Phase 20: the perf probe on the card: the four pinned cells timed
+    (``perf.perf_probe``), each roofline column finite, and a record
+    written with ``perf.write_json`` that passes
+    ``perf_gate.check_provenance``.  The timing verdict against the
+    committed baseline is printed, not acted on: wall clocks across
+    machines are the gate's business, run by hand."""
+    from repro_torch import perf, perf_gate
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    reset_launches()
+    probe = perf.perf_probe(fresh=True, device=dev)
+    launches = dict(LAUNCHES)
+    check(set(probe["cells"]) == set(perf.PROBE_CELLS),
+          f"probe cells {sorted(probe['cells'])}")
+    for name, c in probe["cells"].items():
+        roof = c["roofline"]
+        check(all(math.isfinite(v) for v in roof.values()
+                  if isinstance(v, float)) and c["warm_s_min"] > 0,
+              f"probe {name}: {c}")
+        print(f"probe {name} ({c['entry']}): cold {c['compile_s']:.6f} s, "
+              f"warm min {c['warm_s_min']:.6f} s, median "
+              f"{c['warm_s_median']:.6f} s; {roof['hlo_flops']:.4e} FLOPs, "
+              f"{roof['hlo_bytes']:.4e} op bytes, "
+              f"{roof['roofline_frac']:.6f} of the roofline "
+              f"({roof['dominant']})", flush=True)
+    for k in ("schedule_eval", "gate_quantile"):
+        check(launches.get(k, 0) > 0, f"probe: {k} never launched")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "probe.json")
+        perf.write_json(path, {"bench": "chip_smoke", "timing": {
+            "wall_s": round(time.perf_counter() - t0, 3), "probe": probe}},
+            dev)
+        problems = perf_gate.check_provenance([path])
+        with open(path) as f:
+            prov = json.load(f)["provenance"]
+    check(not problems, f"probe record provenance: {problems}")
+    print(f"probe: provenance {json.dumps(prov)}", flush=True)
+    verdict = perf_gate.gate_verdict(
+        probe, perf_gate.load_baselines([perf_gate.BASELINE_JSON]))
+    print("probe gate (printed, not acted on): " + json.dumps(
+        {k: verdict[k] for k in ("ok", "compared", "skipped")}), flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"probe: phase 20 in {seconds:.1f} s, launches {launches}",
+          flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3459,39 +3700,73 @@ def main() -> int:
           f"the model kernels' SASS lacks tensor-core instructions: "
           f"flash_attention {flash}, ssd_scan {ssd}")
 
+    laps, last = {"build": round(time.perf_counter() - t0, 1)}, [
+        time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     kernels = [kernel_phase(dev), gate_kernel_phase(dev)]
+    lap("kernels")
     main = main_path(dev)
     kernels[0]["launches"] = main["launches"].get("schedule_eval", 0)
+    lap("main")
     online = online_path(dev)
     kernels[1]["launches"] = online["launches"].get("gate_quantile", 0)
+    lap("online")
     layer_phase(dev, main["seconds"])
     reference_phase(dev)
+    lap("layers, reference")
     kernels += [flash_kernel_phase(dev), ssd_kernel_phase(dev)]
+    lap("model kernels")
     serve = serve_phase(dev)
     kernels[2]["launches"] = serve["launches"].get("flash_attention", 0)
     kernels[3]["launches"] = serve["launches"].get("ssd_scan", 0)
     serve_reference_phase(dev)
+    lap("serve")
     forecast_kernel_phase(dev)
     forecast = forecast_path(dev)
+    lap("forecast")
     structure = structure_path(dev)
+    lap("structure")
     knobs, rate, service = stream_full_setup(dev)
     stream_gate_phase(dev, knobs, rate)
     stream = stream_path(dev, knobs, rate, service)
+    lap("stream")
     learn_gate_phase(dev)
     learn = learn_path(dev)
+    lap("learn")
     cluster_kernel_phase(dev)
     cluster = cluster_path(dev)
+    lap("cluster")
     sharded = shard_path(dev, structure, learn)
+    lap("shard")
     family = family_path(dev)
     kernels[2]["launches"] += family["launches"].get("flash_attention", 0)
+    lap("families")
     train = train_path(dev)
     kernels[2]["launches"] += train["launches"]["flash_attention"]
     kernels[3]["launches"] += train["launches"]["ssd_scan"]
+    lap("train")
+    dry = dryrun_path(dev)
+    lap("dryrun")
+    probe = probe_path(dev)
+    lap("probe")
+    for kern, name in zip(kernels, ("schedule_eval", "gate_quantile",
+                                    "flash_attention", "ssd_scan")):
+        kern["launches"] += (dry["launches"].get(name, 0)
+                             + probe["launches"].get(name, 0))
+    print(f"phase seconds ({sum(laps.values()):.1f} in all): "
+          + json.dumps(laps), flush=True)
 
     paths = {"main": main, "online": online, "serve": serve,
              "forecast": forecast, "structure": structure, "stream": stream,
              "learn": learn, "cluster": cluster, "shard": sharded,
-             "families": family, "train": train}
+             "families": family, "train": train, "dryrun": dry,
+             "probe": probe}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",

@@ -12,7 +12,10 @@ On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_plain`
 (the model's blockwise ``flash_unrolled``, or ``flash_scan`` for
 non-causal inputs).  The two agree to a tolerance:
-softmax sums reassociate.
+softmax sums reassociate.  On a ``meta`` tensor it returns the output's
+shape and dtype and computes nothing (the dry run).  :func:`cost` is the
+kernel's FLOPs and bytes: its roofline bound, and what it adds to an
+active ``launch.op_analysis`` count on every device.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost as kcost
 from repro_torch.kernels.ref import flash_attention_plain
 
 NAME = "flash_attention"
+PEAK_FLOPS = kcost.PEAK_FLOPS      # bf16 products on the tensor cores
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -50,6 +54,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(window, bool) or not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
     build.refuse_grad(NAME, q=q, k=k, v=v)
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a (batch, head) attends over: query ``i`` sees
+    ``min(i + 1, window or Sq)`` keys when causal, all ``Skv`` if not."""
+    if not causal:
+        return Sq * Skv
+    w = window or Sq
+    if w >= Sq:
+        return Sq * (Sq + 1) // 2
+    return w * (w + 1) // 2 + (Sq - w) * w
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: QK^T and PV over the live pairs, 2
+    FLOPs a multiply-add; q, k and v read once, the output written once."""
+    B, H, Sq, dh = q.shape
+    flops = 4 * dh * live_pairs(Sq, k.shape[2], causal, window) * B * H
+    moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return flops, moved
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -80,6 +105,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out
 
 
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         window: int, block: int) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, block)
+    return torch.empty_like(q)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     block: int = 2048) -> torch.Tensor:
@@ -87,12 +121,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``causal`` masks keys after the query; ``window > 0`` keeps only keys
     within ``window`` positions of it.  The kernel on CUDA tensors, the
-    plain version on CPU tensors (``block`` is the plain version's tile).
+    plain version on CPU tensors (``block`` is the plain version's tile),
+    the output's shape and dtype on ``meta`` tensors.
     """
     _check(q, k, v, window)
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     with torch.profiler.record_function("repro_torch.flash_attention"):
-        if q.device.type == "cuda":
-            return _launch(q, k, v, causal, window)
-        if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal, window, block)
-    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        if kcost.ACTIVE:
+            return kcost.counted(NAME, lambda: cost(q, k, v, causal, window),
+                                 _run, q, k, v, causal, window, block)
+        return _run(q, k, v, causal, window, block)

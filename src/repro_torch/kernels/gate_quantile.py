@@ -15,7 +15,10 @@ On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version
 :func:`repro_torch.kernels.ref.gate_quantile_stats_ref`.  The two agree
 bitwise: the kernel selects values by stable rank, the plain version by a
-stable sort.
+stable sort.  On a ``meta`` tensor it returns the outputs' shapes and
+dtypes and computes nothing.  :func:`cost` is the kernel's FLOPs and
+bytes: its roofline bound, and what it adds to an active
+``launch.op_analysis`` count on every device.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost as kcost
 from repro_torch.kernels.ref import gate_quantile_stats_ref
 
 NAME = "gate_quantile"
+PEAK_FLOPS = kcost.FP32_FLOPS      # float32 compares
 
 # Dynamic shared memory one block may use on Hopper (bytes).  A window
 # wider than the registers hold keeps one warp's ranks in shared memory:
@@ -54,6 +58,32 @@ def _check(intensity: torch.Tensor, theta: torch.Tensor,
             or max_window < 1:
         raise ValueError(f"max_window must be an int >= 1, got {max_window!r}")
     build.refuse_grad(NAME, intensity=intensity, theta=theta)
+
+
+def valid_slots(window: torch.Tensor, E: int, max_window: int) -> int:
+    """The valid slots of every row's E windows, the sum of the kernel's
+    ``n``: epoch ``e`` of a row of window ``w`` holds ``min(w, E - e)``.
+    On ``meta`` (no values) every row takes ``max_window``, the most it
+    could need; elsewhere this reads the windows back to the host."""
+    cap = min(max_window, E)
+    if window.device.type == "meta":
+        return window.numel() * (cap * (cap + 1) // 2 + (E - cap) * cap)
+    w = window.to(torch.int64).clamp(0, cap)
+    return int((w * (w + 1) // 2 + (E - w) * w).sum())
+
+
+def cost(intensity: torch.Tensor, theta: torch.Tensor,
+         window: torch.Tensor, max_window: int) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: a linear-time selection's compares,
+    2 a valid slot; intensity, theta and window read once, a, b and n
+    written once.  The FLOPs depend on the windows' values
+    (:func:`valid_slots`): a count on ``meta`` charges every row
+    ``max_window``, an upper bound of the same call's count on the CPU or
+    the card, where the bytes agree exactly."""
+    R, E = intensity.shape
+    moved = R * E * (intensity.element_size() + theta.element_size()) \
+        + R * window.element_size() + R * E * (4 + 4 + 4)
+    return 2 * valid_slots(window, E, max_window), moved
 
 
 def _launch(intensity: torch.Tensor, theta: torch.Tensor,
@@ -89,6 +119,18 @@ def _launch(intensity: torch.Tensor, theta: torch.Tensor,
     return a, b, n
 
 
+def _run(intensity: torch.Tensor, theta: torch.Tensor,
+         window: torch.Tensor, max_window: int
+         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if intensity.device.type == "cuda":
+        return _launch(intensity, theta, window, max_window)
+    if intensity.device.type == "cpu":
+        return gate_quantile_stats_ref(intensity, theta, window, max_window)
+    return (torch.empty_like(intensity), torch.empty_like(intensity),
+            torch.empty(intensity.shape, dtype=torch.int32,
+                        device=intensity.device))
+
+
 def gate_quantile_stats(intensity: torch.Tensor, theta: torch.Tensor,
                         window: torch.Tensor, max_window: int
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -98,11 +140,15 @@ def gate_quantile_stats(intensity: torch.Tensor, theta: torch.Tensor,
     window is capped by ``max_window``) -> a, b ``[R, E]`` float32, n
     ``[R, E]`` int32: the values at stable ranks ``floor(theta * (n-1))``
     and its successor, and the valid count.  The kernel on CUDA tensors,
-    the plain version on CPU tensors.
+    the plain version on CPU tensors, the outputs' shapes and dtypes on
+    ``meta``.
     """
     _check(intensity, theta, window, max_window)
-    if intensity.device.type == "cuda":
-        return _launch(intensity, theta, window, max_window)
-    if intensity.device.type == "cpu":
-        return gate_quantile_stats_ref(intensity, theta, window, max_window)
-    raise ValueError(f"gate_quantile: no kernel for device {intensity.device}")
+    if intensity.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"gate_quantile: no kernel for device "
+                         f"{intensity.device}")
+    if kcost.ACTIVE:
+        return kcost.counted(
+            NAME, lambda: cost(intensity, theta, window, max_window),
+            _run, intensity, theta, window, max_window)
+    return _run(intensity, theta, window, max_window)

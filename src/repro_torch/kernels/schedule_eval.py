@@ -12,7 +12,10 @@ float32, in one launch for the whole batch.
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version :func:`repro_torch.kernels.ref.schedule_delta_ref`.
 The two agree bitwise: each element is one subtraction of two loaded
-values.
+values.  On a ``meta`` tensor it returns the output's shape and dtype
+and computes nothing.  :func:`cost` is the kernel's FLOPs and bytes: its
+roofline bound, and what it adds to an active ``launch.op_analysis``
+count on every device.
 """
 from __future__ import annotations
 
@@ -20,10 +23,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost as kcost
 from repro_torch.kernels.ref import schedule_delta_ref
 
 NAME = "schedule_eval"
+PEAK_FLOPS = kcost.FP32_FLOPS      # one float32 subtraction an element
 
 
 def _check(start: torch.Tensor, dur: torch.Tensor, cum: torch.Tensor) -> None:
@@ -41,6 +45,15 @@ def _check(start: torch.Tensor, dur: torch.Tensor, cum: torch.Tensor) -> None:
     if not (start.device == dur.device == cum.device):
         raise ValueError("start, dur and cum must lie on one device")
     build.refuse_grad(NAME, cum=cum)
+
+
+def cost(start: torch.Tensor, dur: torch.Tensor, cum: torch.Tensor
+         ) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: one subtraction an element; start,
+    dur and cum read once, the deltas written once."""
+    n = start.numel()
+    return n, n * (start.element_size() + dur.element_size() + 4) \
+        + cum.numel() * cum.element_size()
 
 
 def _launch(start: torch.Tensor, dur: torch.Tensor,
@@ -67,17 +80,28 @@ def _launch(start: torch.Tensor, dur: torch.Tensor,
     return out
 
 
+def _run(start: torch.Tensor, dur: torch.Tensor,
+         cum: torch.Tensor) -> torch.Tensor:
+    if start.device.type == "cuda":
+        return _launch(start, dur, cum)
+    if start.device.type == "cpu":
+        return schedule_delta_ref(start, dur, cum)
+    return torch.empty(start.shape, dtype=torch.float32, device=start.device)
+
+
 def schedule_delta(start: torch.Tensor, dur: torch.Tensor,
                    cum: torch.Tensor) -> torch.Tensor:
     """``cum[b, clip(s+d, 0, H)] - cum[b, clip(s, 0, H)]`` per element.
 
     start/dur ``[B, Pop, T]`` int32, cum ``[B, H+1]`` float32 ->
     ``[B, Pop, T]`` float32.  The kernel on CUDA tensors, the plain
-    version on CPU tensors.
+    version on CPU tensors, the output's shape and dtype on ``meta``.
     """
     _check(start, dur, cum)
-    if start.device.type == "cuda":
-        return _launch(start, dur, cum)
-    if start.device.type == "cpu":
-        return schedule_delta_ref(start, dur, cum)
-    raise ValueError(f"schedule_delta: no kernel for device {start.device}")
+    if start.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"schedule_delta: no kernel for device "
+                         f"{start.device}")
+    if kcost.ACTIVE:
+        return kcost.counted(NAME, lambda: cost(start, dur, cum), _run,
+                             start, dur, cum)
+    return _run(start, dur, cum)

@@ -13,7 +13,10 @@ needs no padding.
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 runs the plain version, the model's own
 :func:`repro_torch.models.ssm.ssd_chunked`.  The two agree to a tolerance: the chunked
-recurrence reassociates.
+recurrence reassociates.  On a ``meta`` tensor it returns the outputs'
+shapes and dtypes and computes nothing (the dry run).  :func:`cost` is
+the kernel's FLOPs and bytes: its roofline bound, and what it adds to an
+active ``launch.op_analysis`` count on every device.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost as kcost
 
 NAME = "ssd_scan"
+PEAK_FLOPS = kcost.TF32_FLOPS      # split-TF32 products on mma.sync
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SHARED_BYTES = 232448     # dynamic shared memory a Hopper block may use
 MAX_P = 128                   # head dim: the outputs kernel keeps a row's P
@@ -58,6 +62,23 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
     if not (x.device == dt.device == A.device == Bm.device == Cm.device):
         raise ValueError("x, dt, A, B and C must lie on one device")
     build.refuse_grad(NAME, x=x, dt=dt, A=A, B=Bm, C=Cm)
+
+
+def cost(x, dt, A, Bm, Cm, chunk: int) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: C.B over the causal pairs of each
+    chunk once per group (it does not depend on the head); per head M.x
+    over the pairs, the state update and the inflow; the inputs read
+    once, y and h_final written once."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    full, rest = divmod(S, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    flops = B * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * S * P * N))
+    moved = (2 * x.numel() * x.element_size() + dt.numel() * 4
+             + (Bm.numel() + Cm.numel()) * Bm.element_size()
+             + A.numel() * 4 + B * H * P * N * 4)
+    return flops, moved
 
 
 def _launch(x, dt, A, Bm, Cm, chunk: int):
@@ -103,6 +124,19 @@ def _launch(x, dt, A, Bm, Cm, chunk: int):
     return y, h
 
 
+def _run(x, dt, A, Bm, Cm, chunk: int):
+    if x.device.type == "cuda":
+        return _launch(x, dt, A, Bm, Cm, chunk)
+    if x.device.type == "cpu":
+        # imported here: the model imports the kernels
+        from repro_torch.models.ssm import ssd_chunked
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    Bsz, _, H, P = x.shape
+    return (torch.empty_like(x),
+            torch.empty((Bsz, H, P, Bm.shape[3]), dtype=torch.float32,
+                        device=x.device))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -110,14 +144,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x ``[B, S, H, P]``, dt ``[B, S, H]``, A ``[H]``, B/C ``[B, S, G, N]``
     -> y ``[B, S, H, P]`` (x's dtype), h_final ``[B, H, P, N]`` float32.
-    The kernel on CUDA tensors, the plain version on CPU tensors.
+    The kernel on CUDA tensors, the plain version on CPU tensors, the
+    outputs' shapes and dtypes on ``meta`` tensors.
     """
     _check(x, dt, A, Bm, Cm, chunk)
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     with torch.profiler.record_function("repro_torch.ssd_scan"):
-        if x.device.type == "cuda":
-            return _launch(x, dt, A, Bm, Cm, chunk)
-        if x.device.type == "cpu":
-            # imported here: the model imports the kernels
-            from repro_torch.models.ssm import ssd_chunked
-            return ssd_chunked(x, dt, A, Bm, Cm, chunk)
-    raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+        if kcost.ACTIVE:
+            return kcost.counted(NAME, lambda: cost(x, dt, A, Bm, Cm, chunk),
+                                 _run, x, dt, A, Bm, Cm, chunk)
+        return _run(x, dt, A, Bm, Cm, chunk)

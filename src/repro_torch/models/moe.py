@@ -86,6 +86,14 @@ def _expert_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     return _mm(h, w_out)
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How many of ``idx`` (int64, in ``[0, n)``) fall in each of ``n``
+    bins: ``torch.bincount``'s integers as a ``scatter_add_``, whose
+    output size does not depend on the values (so it runs on ``meta``)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int):
     """Each flat (token, expert) slot's token, buffer row and keep flag.
 
@@ -105,7 +113,7 @@ def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int):
     in_range = (flat_e >= 0) & (flat_e < e_local)
     le = torch.where(in_range, flat_e, e_local)              # drop bucket
     order = torch.argsort(le, stable=True)
-    counts = torch.bincount(le, minlength=e_local + 1)
+    counts = _counts(le, e_local + 1)
     first = torch.cumsum(counts, 0) - counts     # each group's first place
     rank = torch.empty_like(le)
     rank[order] = torch.arange(le.numel(), device=dev) - first[le[order]]
@@ -119,7 +127,10 @@ def _dispatch_compute(x2d, ids, wgt, w_in, w_out, *, e_first: int,
     """Scatter the slots routed to experts [e_first, e_first+e_local) into
     a capacity buffer, run the FFNs, scatter back.  Returns [N, D].
 
-    Kept slots have distinct buffer rows, so the scatter is an assignment.
+    Kept slots have distinct buffer rows, so the scatter is an assignment;
+    dropped slots all write the extra last row, which ``buf[:-1]`` leaves
+    out.  So no mask selects the kept slots: a boolean index would read
+    the count back to the host on the card (and has no ``meta`` kernel).
     The combine adds each token's k weighted slots in slot order, rounding
     in x's dtype after each add, as the reference's sequential
     ``zeros.at[tok].add`` does; the result does not depend on the order
@@ -130,7 +141,7 @@ def _dispatch_compute(x2d, ids, wgt, w_in, w_out, *, e_first: int,
     tok, dest, keep = _slots(ids, e_first, e_local, capacity)
     buf = torch.zeros((e_local * capacity + 1, D), dtype=x2d.dtype,
                       device=x2d.device)
-    buf[dest[keep]] = x2d[tok[keep]]
+    buf[dest] = x2d[tok]
     out_buf = _expert_ffn(buf[:-1].reshape(e_local, capacity, D),
                           w_in, w_out, act)
     y_slot = out_buf.reshape(e_local * capacity, D)[
@@ -147,7 +158,7 @@ def aux_loss(probs: torch.Tensor, ids: torch.Tensor, n_experts: int
              ) -> torch.Tensor:
     """Switch-style load-balancing loss: E * <f_e, p_e>."""
     pe = probs.reshape(-1, n_experts).mean(0)
-    fe = torch.bincount(ids.reshape(-1).long(), minlength=n_experts).float()
+    fe = _counts(ids.reshape(-1).long(), n_experts).float()
     fe = fe / torch.clamp_min(fe.sum(), 1.0)
     return n_experts * torch.sum(pe * fe)
 

@@ -1,9 +1,21 @@
-"""Parameter trees: ``ParamDef`` leaves, materialized on a device.
+"""Parameter trees with logical sharding axes, materialized on a device.
 
 The counterpart of ``repro.models.params``.  Every layer builder returns a
 nested dict of :class:`ParamDef` leaves carrying the shape, dtype, an
-*initializer name* and the logical axis names (kept for the shard slice,
-which ports ``ShardingRules`` and the pspec helpers).
+*initializer name* and a tuple of *logical axis names*, one per
+dimension.  A :class:`ShardingRules` table maps logical names to mesh
+axes, as in the reference, so the dry run can size each device's share
+of a mesh (``launch.dryrun``).  Consumers:
+
+  * ``init_params``  — real tensors on a device;
+  * ``param_specs``  — ``meta`` tensors of the same shapes and dtypes, the
+                       counterpart of ``jax.ShapeDtypeStruct`` (nothing is
+                       allocated);
+  * ``param_pspecs`` — a tuple of mesh axes per dimension, the counterpart
+                       of ``PartitionSpec``.
+
+``param_shardings`` (``NamedSharding`` over placed devices) has no
+counterpart: the port places no mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +39,65 @@ class ParamDef:
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} and logical axes "
                              f"{self.logical} differ in rank")
+
+
+# Logical-axis -> mesh-axis rules. A mesh axis may appear at most once per
+# param; `fsdp` composes ("pod","data") on the multi-pod mesh so optimizer
+# state shards across every device (ZeRO-3 posture).
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    rules: tuple[tuple[str, Any], ...] = (
+        ("vocab", "model"),
+        ("embed", None),          # d_model replicated by default
+        ("heads", "model"),       # attention heads -> tensor parallel
+        ("kv_heads", "model"),
+        ("mlp", "model"),         # ffn hidden -> tensor parallel
+        ("expert", "model"),      # MoE experts -> expert parallel
+        ("expert_mlp", None),     # per-expert hidden dim
+        ("fsdp", ("data",)),      # ZeRO axis for 2D-sharded big params
+        ("layer", None),
+        ("seq", None),
+        ("ssm_inner", "model"),
+        ("ssm_state", None),
+        ("conv", None),
+        ("batch", ("data",)),     # activation batch axis (single-pod)
+        ("act_seq", None),        # activation sequence axis
+    )
+
+    def mesh_axes(self, logical: Any):
+        for name, ax in self.rules:
+            if name == logical:
+                return ax
+        return None
+
+    def spec(self, logical_axes: tuple[Any, ...]) -> tuple:
+        """The mesh axes of each dimension (a ``PartitionSpec`` as a
+        tuple); a mesh axis is used once per array, by its first
+        dimension."""
+        used: list[Any] = []
+        out = []
+        for lg in logical_axes:
+            ax = self.mesh_axes(lg) if lg is not None else None
+            if ax is not None:
+                flat = ax if isinstance(ax, tuple) else (ax,)
+                if any(a in used for a in flat):
+                    ax = None
+                else:
+                    used.extend(flat)
+            out.append(ax)
+        return tuple(out)
+
+    def replace(self, **updates: Any) -> "ShardingRules":
+        table = dict(self.rules)
+        table.update(updates)
+        return ShardingRules(tuple(table.items()))
+
+    def for_multipod(self) -> "ShardingRules":
+        """Fold the pod axis into batch + fsdp sharding."""
+        return self.replace(batch=("pod", "data"), fsdp=("pod", "data"))
+
+
+DEFAULT_RULES = ShardingRules()
 
 
 def tree_map_defs(fn: Callable[[ParamDef], Any], tree):
@@ -86,5 +157,41 @@ def init_params(generator: torch.Generator, tree, dtype_override=None):
     return walk(tree)
 
 
+def param_specs(tree, device: str | torch.device = "meta"):
+    """The tree as empty tensors of each leaf's shape and dtype on
+    ``device`` (``meta``: the dry run's stand-in, nothing allocated)."""
+    return tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device=device), tree)
+
+
+def logical_specs(tree):
+    """The logical axes of each leaf."""
+    return tree_map_defs(lambda d: d.logical, tree)
+
+
+def param_pspecs(tree, rules: ShardingRules = DEFAULT_RULES):
+    """The mesh axes of each leaf's dimensions under ``rules``."""
+    return tree_map_defs(lambda d: rules.spec(d.logical), tree)
+
+
 def count_params(tree) -> int:
     return sum(int(np.prod(d.shape)) for d in tree_leaves(tree))
+
+
+def sharded_size_bytes(tree, rules: ShardingRules, mesh_shape: dict[str, int]
+                       ) -> int:
+    """Max per-device bytes of the param tree under ``rules`` on a mesh of
+    the given axis sizes: each leaf split over the mesh axes of its
+    logical dims, rounded up."""
+    total = 0
+    for d in tree_leaves(tree):
+        n = int(np.prod(d.shape))
+        shards = 1
+        for lg in d.logical:
+            ax = rules.mesh_axes(lg) if lg is not None else None
+            if ax is None:
+                continue
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                shards *= mesh_shape.get(a, 1)
+        total += math.ceil(n / shards) * d.dtype.itemsize
+    return total

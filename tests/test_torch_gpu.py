@@ -993,3 +993,53 @@ def test_reduced_hymba_train_step_card_equals_cpu(cuda):
     for k, g in gg.items():
         err = float((g.cpu() - gc[k]).norm() / gc[k].norm())
         assert err <= 5e-2, (k, err)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-moe-30b-a3b",
+                                  "whisper-base"])
+def test_dry_run_counts_equal_the_card(cuda, arch):
+    """One train step of a reduced config counted by ``launch.op_analysis``
+    on ``meta`` and on the card: FLOPs and bytes equal, op by op (ops that
+    move no byte aside); the card's step launched the model kernels."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.common import ShapeCfg
+    cfg = configs.get(arch).reduced()
+    sc = ShapeCfg("train_4k", "train", 128, 2)
+    policy = dryrun.cell_policy(cfg, sc, MeshShape.card(), {})
+    meta = dryrun.count_cell(dryrun.build_cell(cfg, sc, policy))
+    reset_launches()
+    card = dryrun.count_cell(dryrun.build_cell(cfg, sc, policy, cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("flash_attention", 0) > 0
+
+    def costly(ops):
+        return {k: v for k, v in ops.items() if v[1] or v[2]}
+    assert costly(meta[2].ops) == costly(card[2].ops)
+    assert meta[0] == card[0]
+    assert meta[1]["argument_bytes"] == card[1]["argument_bytes"]
+
+
+def test_probe_record_provenance(cuda, tmp_path):
+    """The perf probe on the card: four cells timed, roofline columns
+    finite, and a written record passes ``perf_gate.check_provenance``
+    with the card's name, count and power limit."""
+    import json
+    import math
+    from repro_torch import perf, perf_gate
+    probe = perf.perf_probe(device=cuda)
+    assert set(probe["cells"]) == set(perf.PROBE_CELLS)
+    for c in probe["cells"].values():
+        assert c["warm_s_min"] > 0
+        assert all(math.isfinite(v) for v in c["roofline"].values()
+                   if isinstance(v, float))
+    path = perf.write_json(str(tmp_path / "probe.json"),
+                           {"bench": "t", "timing": {"wall_s": 0.0,
+                                                     "probe": probe}}, cuda)
+    assert perf_gate.check_provenance([path]) == []
+    prov = json.load(open(path))["provenance"]
+    assert prov["backend"] == "cuda"
+    assert prov["device_kind"] == torch.cuda.get_device_name(0)
+    assert prov["device_count"] == torch.cuda.device_count()
+    assert prov["power_limit"].endswith("W")

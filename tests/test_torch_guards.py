@@ -10,6 +10,8 @@
 * The kernels are forward-only: each entry refuses an input that requires
   grad, on every device, while ``ops.gate_threshold`` keeps theta's
   gradient through its lerp.
+* The dry run (``launch.dryrun``) asks for no card: it runs on ``meta``;
+  asked for the card, ``build_cell`` raises like every entry point.
 """
 import ast
 import pathlib
@@ -102,7 +104,15 @@ def test_guard_sees_the_whole_port():
             port / "checkpoint" / "__init__.py",
             port / "checkpoint" / "manager.py",
             port / "train" / "__init__.py",
-            port / "train" / "loop.py"} <= set(PORT_FILES)
+            port / "train" / "loop.py",
+            port / "launch" / "mesh.py",
+            port / "launch" / "sharding.py",
+            port / "launch" / "op_analysis.py",
+            port / "kernels" / "cost.py",
+            port / "launch" / "dryrun.py",
+            port / "launch" / "roofline.py",
+            port / "perf.py",
+            port / "perf_gate.py"} <= set(PORT_FILES)
     assert {port / "configs" / f"{m.__name__.rsplit('.', 1)[1]}.py"
             for m in configs._MODULES} <= set(PORT_FILES)
     assert len(configs._MODULES) == 10
@@ -159,6 +169,34 @@ def test_build_model_without_device_wants_the_card():
         build_model(configs.get("hymba-1.5b").reduced())
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_numpy({}, configs.get("hymba-1.5b").reduced())
+
+
+def test_perf_entries_without_device_want_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch import perf, perf_gate
+    for call in (perf.perf_probe, perf.machine_fingerprint, perf.provenance,
+                 perf.BenchTimer, lambda: perf.bench_timing(1.0),
+                 lambda: perf.write_json(str(tmp_path / "r.json"), {}),
+                 lambda: perf_gate.write_baseline(str(tmp_path / "b.json")),
+                 lambda: perf_gate.main([])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "r.json").exists()
+
+
+def test_dry_run_asks_for_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import ShapeCfg
+    rec = dryrun.run_cell("qwen3-moe-30b-a3b", "decode_32k")
+    assert rec["status"] == "ok" and rec["device"] == "meta"
+    cfg = configs.get("qwen1.5-0.5b").reduced()
+    sc = ShapeCfg("decode_32k", "decode", 64, 2)
+    pol = dryrun.cell_policy(cfg, sc, dryrun.MeshShape.card(), {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.build_cell(cfg, sc, pol, device="cuda")
 
 
 def test_materialize_without_device_wants_the_card():

@@ -11,15 +11,18 @@ the port's ``Model.loss`` on the same weights (the reference's
   (``tests/test_models.py:200``);
 * ``loss_fn`` within 2e-2 and every gradient leaf within a relative
   Frobenius error of 5e-2 of ``jax.grad``'s, with one exception stated in
-  :func:`test_loss_and_grads_match_reference`;
+  ``train_reference.check_loss_and_grads`` (seven of the ten archs here,
+  the other three in ``tests/test_torch_train_grads.py``);
 * the model kernels' trainable entries: on the CPU their output and
   gradients equal autograd through the plain version, bitwise, and the
   raw entries still refuse inputs that require grad;
 * the remat policies ``none`` / ``full`` / ``dots`` give bitwise equal
   loss and gradients, ``dots`` recomputes fewer products than ``full``,
   and ``full`` runs each layer's kernels twice a step;
-* gradients flow through the MoE FFN (router, combine weights, expert
-  banks) as the reference's do, f32 at rtol 1e-4.
+* gradients reach an encdec batch's frames.
+
+``tests/test_torch_train_grads.py`` holds the rest: three archs' loss and
+gradients, the reference's bf16 broadcast sums and the MoE gradients.
 """
 import numpy as np
 import pytest
@@ -27,37 +30,21 @@ import torch
 from numpy.testing import assert_allclose
 from torch.utils._python_dispatch import TorchDispatchMode
 
-import jax
 import jax.numpy as jnp
 
 import repro.models.layers as j_layers
-from repro.configs import ARCHS as J_ARCHS
-from repro.models import moe as j_moe
-from repro.models.api import build_model as j_build_model
-from repro.models.params import init_params as j_init_params
-from repro.models.parallel import ParallelCfg as JParallelCfg
 from repro_torch import configs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models import api, moe, ssm
+from repro_torch.models import api, ssm
 from repro_torch.models.api import build_model
 from repro_torch.models.common import materialize
-from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.layers import chunked_ce_loss, logits_apply
 from repro_torch.models.parallel import ParallelCfg
+from tests.train_reference import TRAIN_ARCHS, check_loss_and_grads
 
-STRICT = {"xla_allow_excess_precision": False}
-JPAR = JParallelCfg(mesh=None, remat="none")
-LOSS_TOL = 2e-2
-GRAD_TOL = 5e-2
 # Leaves whose reference gradient is a bf16 sum over the whole activation:
-# ``Dskip`` enters as ``xh * cast(Dskip)[:, None]``, and XLA's CPU backend
-# accumulates the transpose of that broadcast (a sum over B x S x P) in
-# bf16 (see test_reference_sums_broadcast_transposes_in_bf16).
-BF16_SUM_LEAVES = ("blocks.ssm.Dskip",)
-
-
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """One intra-op thread: the suite runs several workers per host."""
@@ -65,35 +52,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}.{k}" if prefix else k
-        out.update(_flat(v, name) if isinstance(v, dict)
-                   else {name: np.asarray(jnp.asarray(v, jnp.float32))})
-    return out
-
-
-def _rel(got, want) -> float:
-    """Relative Frobenius error ``|got - want| / |want|`` (0 when both
-    are zero)."""
-    d = np.linalg.norm(np.asarray(got, np.float64) - want)
-    n = np.linalg.norm(np.asarray(want, np.float64))
-    return float(d / n) if n else float(d)
-
-
-def _jbatch(batch):
-    return {k: (jnp.asarray(v.float().numpy(), jnp.bfloat16)
-                if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy()))
-            for k, v in batch.items()}
-
-
-def _reference_value_and_grad(jm, jcfg, jp, jb):
-    vg = jax.jit(jax.value_and_grad(
-        lambda p, b: jm.loss(p, b, jcfg, JPAR)))
-    return vg.lower(jp, jb).compile(compiler_options=STRICT)(jp, jb)
 
 
 # ---------------------------------------------------------------------------
@@ -134,76 +92,11 @@ def test_chunked_ce_refuses_uneven_chunks():
                         torch.zeros((1, 50), dtype=torch.int32), chunk=16)
 
 
-@pytest.mark.parametrize("arch", configs.ALL_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_loss_and_grads_match_reference(arch, monkeypatch):
-    """``Model.loss`` against ``jax.value_and_grad(loss_fn)`` on the
-    reference's weights, seq 64, batch 2: the loss within 2e-2 and every
-    gradient leaf within relative Frobenius 5e-2 (measured worst over the
-    ten archs: loss 5.0e-4 (llava), gradient 1.8e-2 (qwen1.5-0.5b's and
-    codeqwen's ``attn.bk``)).
-
-    The exception is ``ssm.Dskip`` (mamba2, hymba), whose reference
-    gradient is a bf16 sum over the activation (``BF16_SUM_LEAVES``): it
-    is held within 5e-2 of the reference's gradient computed in float32
-    (its ``COMPUTE_DTYPE`` set to float32, the same code), and the
-    reference's own bf16 gradient must lie further from that than the
-    port's (measured: port 2.3e-2 / 1.8e-2, reference 4.9e-2 / 4.8e-2;
-    the port is 4.3e-2 / 5.3e-2 from the reference's bf16 gradient)."""
-    jcfg, cfg = J_ARCHS[arch].reduced(), configs.get(arch).reduced()
-    jm = j_build_model(jcfg)
-    jp = j_init_params(jax.random.key(0), jm.defs)
-    model = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu",
-                              ParallelCfg(remat="none"))
-    batch = materialize(cfg, "train_4k", seq=64, batch=2, device="cpu")
-    jb = _jbatch(batch)
-    jloss, jgrads = _reference_value_and_grad(jm, jcfg, jp, jb)
-    loss, grads = model.loss(batch)
-    assert abs(float(loss) - float(jloss)) <= LOSS_TOL
-    want = _flat(jgrads)
-    assert list(grads) == [n for n, _ in model.named_parameters()]
-    assert set(grads) == set(want)
-    bad = {k: _rel(g.numpy(), want[k]) for k, g in grads.items()
-           if k not in BF16_SUM_LEAVES
-           and _rel(g.numpy(), want[k]) > GRAD_TOL}
-    assert not bad, f"{arch}: gradient leaves off the reference's: {bad}"
-    special = [k for k in BF16_SUM_LEAVES if k in grads]
-    if special:
-        monkeypatch.setattr(j_layers, "COMPUTE_DTYPE", jnp.float32)
-        _, g32 = _reference_value_and_grad(jm, jcfg, jp, jb)
-        exact = _flat(g32)
-        for k in special:
-            port, theirs = (_rel(grads[k].numpy(), exact[k]),
-                            _rel(want[k], exact[k]))
-            assert port <= GRAD_TOL, (k, port)
-            assert theirs > port, (k, port, theirs)
-
-
-def test_reference_sums_broadcast_transposes_in_bf16():
-    """Why ``BF16_SUM_LEAVES``: the gradient of ``sum(w * (x * d[:, None]))``
-    in a bf16 ``d`` over 4096 terms, from the reference's XLA (STRICT) and
-    from torch, against float64: torch sums in float32 and rounds once
-    (within one bf16 ulp), XLA's CPU backend sums in bf16 (off by more
-    than 5%)."""
-    rng = np.random.default_rng(0)
-    x, w = (rng.standard_normal((2, 64, 4, 32)).astype(np.float32)
-            for _ in range(2))
-    jx, jw = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
-    xe, we = (np.asarray(a.astype(jnp.float32), np.float64) for a in (jx, jw))
-    exact = (xe * we).sum((0, 1, 3))
-
-    def f(d, x, w):
-        return jnp.sum((x * d.astype(jnp.bfloat16)[:, None] * w)
-                       .astype(jnp.float32))
-    d = jnp.ones((4,), jnp.float32)
-    g = jax.jit(jax.grad(f)).lower(d, jx, jw).compile(
-        compiler_options=STRICT)(d, jx, jw)
-    td = torch.ones(4, requires_grad=True)
-    tx, tw = (torch.from_numpy(a).bfloat16() for a in (xe.astype(np.float32),
-                                                      we.astype(np.float32)))
-    (tx * td.bfloat16()[:, None] * tw).float().sum().backward()
-    ulp = 2.0 ** -7 * np.abs(exact)
-    assert (np.abs(td.grad.numpy() - exact) <= ulp).all()
-    assert np.abs(np.asarray(g) - exact).max() > 0.05 * np.abs(exact).max()
+    """``Model.loss`` against ``jax.value_and_grad(loss_fn)``
+    (``train_reference.check_loss_and_grads``)."""
+    check_loss_and_grads(arch, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
@@ -393,42 +286,6 @@ def test_model_loss_keeps_parameters_frozen():
     assert not any(p.requires_grad for p in model.parameters())
     logits, _ = model.prefill({"tokens": batch["tokens"]})
     assert not logits.requires_grad
-
-
-# ---------------------------------------------------------------------------
-# MoE gradients.
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
-def test_moe_gradients_match_reference(arch):
-    """The gradient of ``sum(w * y) + aux`` through ``moe_apply`` in the
-    router, the expert banks (and the shared experts), and x, float32
-    inputs, against ``jax.grad`` of the reference's within relative
-    Frobenius 1e-4 per leaf (a norm: single elements near cancellation
-    differ by ~4e-9 at values of ~1e-4): the router product and the
-    combine weights carry gradient, the routing ids none, as in the
-    reference."""
-    jcfg = J_ARCHS[arch].reduced()
-    cfg = configs.get(arch).reduced()
-    jp = j_init_params(jax.random.key(0), j_moe.moe_defs(jcfg))
-    rng = np.random.default_rng(5)
-    x = (0.1 * rng.standard_normal((2, 16, cfg.d_model))).astype(np.float32)
-    w = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
-
-    def jf(p, x):
-        y, aux = j_moe.moe_apply(p, x, jcfg, JPAR)
-        return jnp.sum(y * w) + aux
-    jg = jax.grad(jf, argnums=(0, 1))(jp, jnp.asarray(x))
-    tp = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
-          for k, v in jp.items()}
-    tx = torch.from_numpy(x).requires_grad_(True)
-    y, aux = moe.moe_apply(tp, tx, cfg, ParallelCfg())
-    assert aux.requires_grad
-    ((y * torch.from_numpy(w)).sum() + aux).backward()
-    for k, p in tp.items():
-        assert bool(p.grad.abs().sum() > 0), k
-        assert _rel(p.grad.numpy(), np.asarray(jg[0][k])) <= 1e-4, k
-    assert _rel(tx.grad.numpy(), np.asarray(jg[1])) <= 1e-4
 
 
 def test_encoder_frames_reach_the_loss():
