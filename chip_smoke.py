@@ -106,7 +106,7 @@ non-zero exit code if it fails:
     ``tests/golden/learn_tiny.json`` at its tolerances (one
     ``gate_quantile`` launch a step); then ``bench.run_learned_gate``'s
     FULL grid (60 cells x 4 instances, horizon 2048, both stretches) cut
-    to 5 training steps a stretch, launch counts read around it
+    to 2 training steps a stretch, launch counts read around it
     (``gate_quantile`` once for the fixed sweep, once a step, once a hard
     evaluation): every schedule complete and validator-clean, learned >=
     fixed everywhere, the fixed-grid fields equal to ``BENCH_learn.json``'s
@@ -164,7 +164,7 @@ non-zero exit code if it fails:
     3e-2, the MoE routes compared layer by layer (a flip only at a near
     tie, |p_a - p_b| <= 1e-6, and counted);
 18. train — (a) hymba-1.5b at full width and depth (1.642 B parameters,
-    f32 with f32 AdamW moments) trains 8 steps at seq 4096 x batch 2
+    f32 with f32 AdamW moments) trains 6 steps at seq 4096 x batch 2
     (the reference's ``train_4k`` sequence; its batch of 256 cut so one
     card holds it), remat full, through ``repro_torch.launch.train``:
     every loss and grad norm finite, the last loss below the first, each
@@ -173,8 +173,9 @@ non-zero exit code if it fails:
     in autograd's backward, once a layer; s a step, tokens/s, peak
     memory, one step split into forward, backward (of which the plain
     recompute of attention and of the scan) and optimizer, and one step's
-    busy share; then the same 8 steps with a checkpoint every 2, a
-    preemption as step 5 starts and a fresh Trainer resumed from the
+    busy share; then, at full width cut to 8 layers (5.4 GB checkpoints),
+    6 uninterrupted steps and the same 6 steps with a checkpoint every 3,
+    a preemption as step 4 starts and a fresh Trainer resumed from the
     latest complete checkpoint, its final loss within rel 1e-3 of the
     uninterrupted run's; (b) whisper-base at full width and depth, two
     steps at seq 448 x batch 4 (the encoder's and the cross attention
@@ -201,7 +202,28 @@ non-zero exit code if it fails:
     (dispatch sweep, gate learner, fitness, gate) timed cold and warm,
     each roofline column finite; the record passes
     ``perf_gate.check_provenance``; the verdict against the committed
-    ``torch_perf_baseline.json`` is printed, not acted on.
+    ``torch_perf_baseline.json`` is printed, not acted on;
+21. mesh — the model over a placed mesh: ``torch.distributed`` ranks on
+    gloo that share the one card (this script spawned as
+    ``--mesh-worker``), each holding its block of every sharded weight
+    and batch, talking only through ``models.parallel``'s all-reduces:
+    (a) reduced qwen3-moe's loss and gradients on a ``data=2, model=2``
+    fleet on the card against the same fleet on the CPU (every rank the
+    same loss; loss 5e-3, each leaf 3e-2); (b) qwen3-moe-30b-a3b at full
+    width and 8 layers over ``model=4`` (experts, heads and vocabulary
+    split): a prefill of 2 x 1024 tokens and 16 decode steps, the logits
+    within 3e-2 of one card's on the same weights, and, as in phase 17,
+    rank 0's router inputs of every call through one card's router: the
+    ids equal but at ties within 1e-6; (c) hymba-1.5b at full width and
+    depth over ``model=2`` (the SSM, MLP and vocabulary split, the 25 heads
+    replicated): one loss and gradient and one train step at seq 1024 x 2
+    through both trainable entries, against one card's (loss 3e-2, each
+    gradient leaf 5e-2, 64 launches of each kernel a rank), and a float32
+    witness of the loss and gradient on both sides (mesh vs one card
+    5e-3; each bf16 run's distance to it, the mesh's within twice one
+    card's plus 5e-3); each
+    rank's walls, peak memory, launches and all-reduce calls, bytes and
+    seconds printed.
 
 Every kernel bound comes from the kernel module's own ``cost`` formula at
 the card's rates (``kernels.cost``).  A line gives each phase's seconds.
@@ -209,9 +231,10 @@ The last four lines are each kernel's launches on each path, the
 ``kernels`` JSON record (launches:
 the main path's, the dry run's and the probe's; ``gate_quantile``'s the
 online path's and the probe's; ``flash_attention``'s the serve path's,
-the families', the train path's and the dry run's; ``ssd_scan``'s the
-serve path's, the train path's and the dry run's), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+the families', the train path's, the dry run's and the mesh ranks';
+``ssd_scan``'s the serve path's, the train path's, the dry run's and the
+mesh ranks'), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1797,7 +1820,8 @@ def stream_path(dev, knobs, rate, service) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
-LEARN_SMOKE_STEPS = 5          # training steps a stretch on the FULL grid
+LEARN_SMOKE_STEPS = 2          # training steps a stretch on the FULL grid
+                               # (cut so that phase 21 fits the time limit)
 LEARN_GOLDEN_TOL = {"loss_curve": (1e-3, 2e-4), "final_theta": (1e-3, 2e-3),
                     "learned_savings_pct": (1e-4, 2e-3)}   # (rtol, atol)
 # The fixed-grid fields of BENCH_learn.json's rows, each held to its file
@@ -2653,47 +2677,36 @@ def fleet_worker() -> int:
     return 0
 
 
-def fleet_phase(dev) -> None:
-    """FLEET_PROCESSES ranks on the one card over gloo (this script in
-    ``--fleet-worker`` mode, spawned in reversed rank order with the
-    ``REPRO_*`` env) sweep the TINY grid with the offline bound; each
-    rank's rows must equal this process's unsharded sweep's."""
+def spawn_ranks(n: int, args: list, timeout: float, label: str,
+                order=None) -> dict:
+    """``n`` ranks of a gloo fleet on this machine: this script run with
+    ``args`` and the ``REPRO_*`` env, spawned in ``order`` (rank order by
+    default).  Each writes to files of its own, never to a pipe that could
+    fill while another rank is being waited on.  Fails unless every rank
+    ends within ``timeout`` with code 0; returns each rank's last stdout
+    line, parsed as JSON."""
     import socket
-    import torch
-    from repro_torch import bench
-    from repro_torch.scenarios import sweep_structure
-
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    single, _ = sweep_structure(bench.structure_spec(tiny=True),
-                                offline=True, device=dev)
-    torch.cuda.synchronize(dev)
-    single_s = time.perf_counter() - t0
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     procs, logs = {}, {}
-    t0 = time.perf_counter()
     try:
-        for rank in reversed(range(FLEET_PROCESSES)):
+        for rank in (range(n) if order is None else order):
             env = dict(os.environ, REPRO_COORDINATOR=f"127.0.0.1:{port}",
-                       REPRO_NUM_PROCESSES=str(FLEET_PROCESSES),
-                       REPRO_PROCESS_ID=str(rank))
-            # Each rank writes to files of its own, never to a pipe that
-            # could fill while another rank is being waited on.
+                       REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(rank))
             logs[rank] = (tempfile.TemporaryFile("w+"),
                           tempfile.TemporaryFile("w+"))
             procs[rank] = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--fleet-worker"],
+                [sys.executable, os.path.abspath(__file__), *args],
                 env=env, stdout=logs[rank][0], stderr=logs[rank][1],
                 text=True)
-        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for rank, p in procs.items():
             try:
                 p.wait(timeout=max(deadline - time.monotonic(), 1))
             except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"fleet rank {rank} still running after "
-                                   f"{FLEET_TIMEOUT_S} s") from None
+                raise SmokeFailure(f"{label} rank {rank} still running "
+                                   f"after {timeout} s") from None
         outs = {}
         for rank, files in logs.items():
             for f in files:
@@ -2707,13 +2720,35 @@ def fleet_phase(dev) -> None:
         for files in logs.values():
             for f in files:
                 f.close()
-    wall = time.perf_counter() - t0
-    ranks = {}
+    results = {}
     for rank, p in sorted(procs.items()):
         out, err = outs[rank]
-        check(p.returncode == 0, f"fleet rank {rank} failed (rc="
+        check(p.returncode == 0, f"{label} rank {rank} failed (rc="
               f"{p.returncode}):\n{err[-3000:]}")
-        ranks[rank] = json.loads(out.strip().splitlines()[-1])
+        results[rank] = json.loads(out.strip().splitlines()[-1])
+    return results
+
+
+def fleet_phase(dev) -> None:
+    """FLEET_PROCESSES ranks on the one card over gloo (this script in
+    ``--fleet-worker`` mode, spawned in reversed rank order with the
+    ``REPRO_*`` env) sweep the TINY grid with the offline bound; each
+    rank's rows must equal this process's unsharded sweep's."""
+    import torch
+    from repro_torch import bench
+    from repro_torch.scenarios import sweep_structure
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    single, _ = sweep_structure(bench.structure_spec(tiny=True),
+                                offline=True, device=dev)
+    torch.cuda.synchronize(dev)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(FLEET_PROCESSES, ["--fleet-worker"], FLEET_TIMEOUT_S,
+                        "fleet", order=reversed(range(FLEET_PROCESSES)))
+    wall = time.perf_counter() - t0
+    for rank in ranks:
         check(ranks[rank]["rows"] == json.loads(json.dumps(single)),
               f"fleet rank {rank}'s TINY rows with the offline bound "
               "differ from the single-process sweep's")
@@ -2848,10 +2883,11 @@ def family_serve_phase(dev, plan, rng) -> dict:
     return {"launches": launches, "seconds": seconds, "runs": runs}
 
 
-def route_flips(ids_a, probs_a, ids_b) -> int:
+def route_flips(ids_a, probs_a, ids_b, names=("the card", "the CPU")
+                ) -> int:
     """Rows whose chosen experts differ between two routings of the same
-    tokens; fails unless the experts at the differing slots tie within
-    FLIP_TOL in ``probs_a``."""
+    tokens (``names`` say whose); fails unless the experts at the
+    differing slots tie within FLIP_TOL in ``probs_a``."""
     rows = (ids_a != ids_b).any(-1).nonzero()[:, 0].tolist()
     for r in rows:
         slots = (ids_a[r] != ids_b[r]).nonzero()[:, 0]
@@ -2859,8 +2895,9 @@ def route_flips(ids_a, probs_a, ids_b) -> int:
                          | set(ids_b[r, slots].tolist()))
         p = probs_a[r, experts]
         check(float(p.max() - p.min()) <= FLIP_TOL,
-              f"routing: row {r} chose experts {ids_a[r].tolist()} on the "
-              f"card and {ids_b[r].tolist()} on the CPU, probabilities "
+              f"routing: row {r} chose experts {ids_a[r].tolist()} on "
+              f"{names[0]} and {ids_b[r].tolist()} on {names[1]}, "
+              f"probabilities "
               f"{p.tolist()} (not a tie within {FLIP_TOL})")
     return len(rows)
 
@@ -2994,10 +3031,11 @@ def family_path(dev) -> dict:
 # then the two kernels timed at the train shapes.
 TRAIN_SEQ = 4096                # the reference's train_4k sequence
 TRAIN_BATCH = 2                 # train_4k's 256, cut so one card holds it
-TRAIN_STEPS = 8
-TRAIN_CKPT_EVERY = 2
-TRAIN_FAULT = 5                 # the preemption: raised as step 5 starts
+TRAIN_STEPS = 6                 # these two cut so that phase 21 fits
+TRAIN_CKPT_EVERY = 3            # the time limit: two saves
+TRAIN_FAULT = 4                 # the preemption: raised as step 4 starts
 TRAIN_RESUME_RTOL = 1e-3        # resumed vs uninterrupted final loss
+TRAIN_RESUME_LAYERS = 8         # the preemption's hymba: 8 of 32 layers
 TRAIN_REF_TOL = 3e-2            # card vs CPU: loss, params after a step
 TRAIN_GRAD_TOL = 5e-2           # card vs CPU: each gradient leaf, rel. norm
 WHISPER_TRAIN = (448, 4, 2)     # whisper-base: seq, batch, steps
@@ -3143,11 +3181,14 @@ def train_split(tr) -> dict:
 
 
 def train_hymba(dev) -> dict:
-    """(a) hymba-1.5b at full width and depth: 8 uninterrupted steps
+    """(a) hymba-1.5b at full width and depth: 6 uninterrupted steps
     through ``launch.train.main`` (seq 4096, batch 2, remat full), a
-    split step and a profiled step; then the same 8 steps with a
-    checkpoint every 2 and a preemption as step 5 starts, resumed by a
-    fresh Trainer from the latest complete checkpoint."""
+    split step and a profiled step; then, at full width and
+    TRAIN_RESUME_LAYERS layers (for the time of its 5.4 GB checkpoints,
+    not 19.7 GB), 6 uninterrupted steps through ``Trainer`` and the same
+    6 steps with a checkpoint every 3 and a preemption as step 4 starts,
+    resumed by a fresh Trainer from the latest complete checkpoint."""
+    import dataclasses
     import statistics as st
 
     import torch
@@ -3223,10 +3264,16 @@ def train_hymba(dev) -> dict:
 
     shape = ShapeCfg("cli", "train", TRAIN_SEQ, TRAIN_BATCH)
     par = ParallelCfg(remat="full")
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
     resumed = TrainCounts()
     with tempfile.TemporaryDirectory() as ckpt, resumed:
+        whole = Trainer(build_model(cut, dev, seed=0, par=par),
+                        train_config(TRAIN_STEPS), shape=shape)
+        cut_losses = [m["loss"] for m in whole.run()]
+        del whole
+        free_card()
         t0 = time.perf_counter()
-        first = Trainer(build_model(cfg, dev, seed=0, par=par),
+        first = Trainer(build_model(cut, dev, seed=0, par=par),
                         train_config(TRAIN_STEPS), shape=shape,
                         ckpt_dir=ckpt, fault_hook=bomb, keep=1)
         check(first.resume() == 0, "train: a fresh checkpoint directory "
@@ -3242,7 +3289,7 @@ def train_hymba(dev) -> dict:
         free_card()
         pre_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        second = Trainer(build_model(cfg, dev, seed=1, par=par),
+        second = Trainer(build_model(cut, dev, seed=1, par=par),
                          train_config(TRAIN_STEPS), shape=shape,
                          ckpt_dir=ckpt, keep=1)
         start = second.resume()
@@ -3257,18 +3304,21 @@ def train_hymba(dev) -> dict:
         final = after[-1]["loss"]
         del second
         free_card()
-    resumed.check("hymba-1.5b preempted and resumed", per_step)
-    err = abs(final - losses[-1]) / abs(losses[-1])
+    resumed.check(f"hymba-1.5b ({TRAIN_RESUME_LAYERS} layers) preempted and "
+                  "resumed", {k: 2 * TRAIN_RESUME_LAYERS for k in per_step})
+    err = abs(final - cut_losses[-1]) / abs(cut_losses[-1])
     check(err <= TRAIN_RESUME_RTOL, f"train: the resumed run ended at loss "
-          f"{final}, the uninterrupted one at {losses[-1]} (rel {err:.3g} > "
-          f"{TRAIN_RESUME_RTOL})")
-    print(f"train: preemption as step {TRAIN_FAULT} started ({TRAIN_FAULT} "
+          f"{final}, the uninterrupted one at {cut_losses[-1]} (rel "
+          f"{err:.3g} > {TRAIN_RESUME_RTOL})")
+    print(f"train: hymba-1.5b at full width, {TRAIN_RESUME_LAYERS} layers: "
+          f"preemption as step {TRAIN_FAULT} started ({TRAIN_FAULT} "
           f"steps and saves at {TRAIN_CKPT_EVERY}-step intervals, "
           f"{pre_s:.1f} s; on disk after the crash: steps {saved}); a fresh "
           f"Trainer with other weights resumed at step {start} in "
           f"{restore_s:.1f} s and ran to step {TRAIN_STEPS} in {rest_s:.1f} "
-          f"s: final loss {final:.6f} vs the uninterrupted {losses[-1]:.6f} "
-          f"(rel {err:.3g} <= {TRAIN_RESUME_RTOL})", flush=True)
+          f"s: final loss {final:.6f} vs the uninterrupted "
+          f"{cut_losses[-1]:.6f} (rel {err:.3g} <= {TRAIN_RESUME_RTOL})",
+          flush=True)
     launches = {k: sum(n[k] for n in counts.steps + resumed.steps)
                 for k in per_step}
     return {"launches": launches, "seconds": run_s, "step_s": warm,
@@ -3670,6 +3720,533 @@ def probe_path(dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# Phase 21: the model over a placed mesh.  Gloo ranks that share the one
+# card (this script spawned as --mesh-worker), each holding its shard of
+# the model, talking only through models.parallel's all-reduces.
+MESH_TIMEOUT_S = 600
+MESH_STEP_MESH = "data=2,model=2"   # (a) reduced qwen3-moe, 4 ranks
+MESH_STEP_TOL = 5e-3            # (a) card fleet vs CPU fleet: loss, abs
+MESH_STEP_GRAD_TOL = 3e-2       # (a) ... each gradient leaf, rel. norm
+MESH_SERVE_MESH = "data=1,model=4"  # (b) qwen3-moe-30b-a3b, 8 layers
+MESH_SERVE_LANES = 2
+MESH_SERVE_PROMPT = 1024
+MESH_SERVE_DECODE = 16
+MESH_SERVE_TOL = 3e-2           # (b) logits vs one card, atol = rtol
+MESH_TRAIN_MESH = "data=1,model=2"  # (c) hymba-1.5b, full width and depth
+MESH_TRAIN_SEQ = 1024           # (c) phase 18's 4096 cut: see mesh_train
+MESH_TRAIN_BATCH = 2
+MESH_TRAIN_TOL = 3e-2           # (c) loss vs one card, relative
+MESH_TRAIN_GRAD_TOL = 5e-2      # (c) each gradient leaf, rel. norm
+MESH_TRAIN_F32_TOL = 5e-3       # (c) float32 witness: mesh vs one card
+MESH_TRAIN_WITNESS = 2.0        # (c) mesh's bf16 distance to it / one card's
+
+
+def mesh_tokens(cfg, seed: int, shape: tuple):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def serial_build(mesh, build):
+    """``build()`` on each rank in turn (a barrier between ranks): a rank
+    draws each whole leaf on the card before it keeps its block, and the
+    ranks' whole leaves would not fit the card at once."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            out = build()
+            torch.cuda.synchronize(mesh.device)
+        dist.barrier()
+    return out
+
+
+def mesh_worker(mode: str, work: str, device: str) -> int:
+    """One rank of phase 21 (spawned by :func:`mesh_path` with the
+    ``REPRO_*`` env): ``step`` (a), ``serve`` (b) or ``train`` (c); its
+    results as the last line, rank 0's arrays under ``work``."""
+    sys.path.insert(0, SRC)
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs, shard
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import (batch_shard, gather_params,
+                                             make_parallel)
+    from repro_torch.models import parallel
+    from repro_torch.models.api import build_model, model_defs
+    from repro_torch.models.common import materialize
+    from repro_torch.models.params import local_slices
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.loop import make_train_step
+
+    shard.initialize_from_env(initialization_timeout=MESH_TIMEOUT_S)
+    if device == "cpu":
+        torch.set_num_threads(2)
+    spec = {"step": MESH_STEP_MESH, "serve": MESH_SERVE_MESH,
+            "train": MESH_TRAIN_MESH}[mode]
+    mesh = ProcessMesh.build(MeshShape.parse(spec), device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    out = {"rank": mesh.rank, "device": str(dev)}
+    parallel.TIME_COLLECTIVES = True
+    if mode == "step":
+        cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+        par = make_parallel(cfg, mesh, remat="none")
+        model = build_model(cfg, "cpu", seed=0, par=par).to(dev)
+        tokens = torch.from_numpy(mesh_tokens(cfg, 0, (8, 64)))
+        labels = torch.cat([tokens[:, 1:], torch.full((8, 1), -1,
+                                                      dtype=torch.int32)], 1)
+        batch = batch_shard({"tokens": tokens.to(dev),
+                             "labels": labels.to(dev)}, cfg, par)
+        reset_launches()
+        loss, grads = model.loss(batch)
+        out["loss"] = float(parallel.sum_no_grad(loss, par, par.batch_axes))
+        out["launches"] = dict(LAUNCHES)
+        grads = gather_params(parallel.sum_over_data(grads, par),
+                              model_defs(cfg), par)
+        if mesh.rank == 0:
+            np.savez(os.path.join(work, f"step_{device}.npz"),
+                     **{k: g.float().cpu().numpy() for k, g in grads.items()})
+    elif mode == "serve":
+        cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"),
+                                  n_layers=FAMILY_LAYERS)
+        par = make_parallel(cfg, mesh)
+        model = serial_build(mesh, lambda: build_model(cfg, dev, seed=0,
+                                                       par=par))
+        toks = torch.from_numpy(mesh_tokens(
+            cfg, 24, (MESH_SERVE_LANES, MESH_SERVE_PROMPT + MESH_SERVE_DECODE)
+        )).to(dev)
+        logits, routes, walls = mesh_serve(model, toks, sync)
+        out.update(walls)
+        if mesh.rank == 0:      # the router's inputs are the same on each
+            np.save(os.path.join(work, "serve_mesh.npy"), logits)
+            torch.save(routes, os.path.join(work, "serve_routes.pt"))
+    else:
+        cfg = configs.get("hymba-1.5b")
+        par = make_parallel(cfg, mesh, remat="full")
+        model = serial_build(mesh, lambda: build_model(cfg, dev, seed=0,
+                                                       par=par))
+        batch = materialize(cfg, "train_4k", seq=MESH_TRAIN_SEQ,
+                            batch=MESH_TRAIN_BATCH, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        parallel.reset_traffic()
+        rules = par.effective_rules()
+
+        def grad_sq(grads, folders):
+            """This rank's block of each leaf against each of ``folders``'
+            whole leaves: ``{folder: {leaf: [|diff|^2, |want|^2]}}``,
+            on the card (float32 norms)."""
+            sq = {f: {} for f in folders}
+            for d, name in mesh_leaves(model_defs(cfg)):
+                for f in folders:
+                    want = torch.from_numpy(np.ascontiguousarray(np.load(
+                        os.path.join(work, f, name + ".npy"), mmap_mode="r")[
+                            local_slices(d, rules, mesh)])).to(dev)
+                    sq[f][name] = [
+                        float(torch.linalg.vector_norm(grads[name] - want))
+                        ** 2, float(torch.linalg.vector_norm(want)) ** 2]
+                    del want
+            return sq
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = model.loss(batch)
+        sync()
+        out["loss_s"] = time.perf_counter() - t0
+        out["loss"] = float(loss)
+        out["launches"] = dict(LAUNCHES)
+        out["traffic"] = {a: list(v) for a, v in parallel.TRAFFIC.items()}
+        out["grad_sq"] = grad_sq(grads, ("grads", "grads32"))
+        del grads
+        loss, grads = f32_loss(model, batch)      # the float32 witness
+        out["loss32"] = float(loss)
+        out["grad_sq"]["f32"] = grad_sq(grads, ("grads32",))["grads32"]
+        del grads
+        out["sharded"] = sorted(model.sharded)
+        tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                         total_steps=8))
+        opt = adamw_init(dict(model.named_parameters()), tc.opt)
+        sync()
+        t0 = time.perf_counter()
+        _, _, m = make_train_step(model, tc)(opt, None, batch)
+        sync()
+        out["step_s"] = time.perf_counter() - t0
+        out["step_loss"] = float(m["loss"])
+        out["grad_norm"] = float(m["grad_norm"])
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        out["launches_run"] = dict(LAUNCHES)
+    # Every rank leaves the groups together: a rank that exits with gloo's
+    # threads still up can abort at interpreter shutdown.
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def f32_loss(model, batch):
+    """``model.loss(batch)`` with the compute dtype float32 (hymba's
+    weights are float32 already): the kernels' float32 paths and no bf16
+    rounding anywhere, a witness for the bf16 runs' gradients."""
+    import torch
+    from repro_torch.models import layers
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        return model.loss(batch)
+    finally:
+        layers.COMPUTE_DTYPE = torch.bfloat16
+
+
+def mesh_leaves(defs, prefix: str = ""):
+    """(ParamDef, ``named_parameters`` name) of every leaf."""
+    from repro_torch.models.params import ParamDef
+    for k in sorted(defs):
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(defs[k], ParamDef):
+            yield defs[k], name
+        else:
+            yield from mesh_leaves(defs[k], name)
+
+
+def mesh_serve(model, toks, sync):
+    """A prefill of ``toks``' prompts and MESH_SERVE_DECODE decode steps
+    fed its next tokens (the same on one card and on the mesh): the logits
+    of every step, every router call's ``(inputs, ids)`` in call order
+    (the prefill's layers, then each decode step's), and the walls, peak
+    memory, kernel launches and collective traffic of the run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.models import moe, parallel
+
+    dev = model.device
+    P = MESH_SERVE_PROMPT
+    real, routes = moe._route, []
+
+    def route(x2d, router, k):          # kept on the card until the end
+        out = real(x2d, router, k)
+        routes.append((x2d.detach(), out[0]))
+        return out
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    parallel.reset_traffic()
+    moe._route = route
+    try:
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill({"tokens": toks[:, :P]})
+        sync()
+        prefill_s = time.perf_counter() - t0
+        for k in ("k_cache", "v_cache"):             # room for the decode
+            caches[k] = F.pad(caches[k], (0, 0, 0, 0, 0, MESH_SERVE_DECODE))
+        steps = [logits]
+        t0 = time.perf_counter()
+        for t in range(MESH_SERVE_DECODE):
+            logits, caches = model.decode(
+                {"token": toks[:, P + t:P + t + 1],
+                 "pos": torch.tensor(P + t), **caches})
+            steps.append(logits)
+        sync()
+        decode_s = time.perf_counter() - t0
+    finally:
+        moe._route = real
+    walls = {"prefill_s": prefill_s, "decode_s": decode_s,
+             "peak": torch.cuda.max_memory_allocated(dev),
+             "launches": dict(LAUNCHES),
+             "traffic": {a: list(v) for a, v in parallel.TRAFFIC.items()}}
+    routes = [(x.cpu(), ids.cpu()) for x, ids in routes]
+    return torch.stack(steps).cpu().numpy(), routes, walls
+
+
+def mesh_step(work: str) -> dict:
+    """(a) the reduced qwen3-moe 2 x 2 loss and gradients on the card and
+    on the CPU, each a 4-rank fleet (the CPU fleet is the one
+    ``tests/test_torch_mesh_fleet.py`` holds to the reference)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:     # the two fleets side by side
+        card, cpu = pool.map(
+            lambda d: spawn_ranks(4, ["--mesh-worker", "step", work, d],
+                                  MESH_TIMEOUT_S, f"mesh step ({d})"),
+            ("cuda", "cpu"))
+    wall = time.perf_counter() - t0
+    losses = {r["loss"] for r in card.values()}
+    check(len(losses) == 1 and len({r["loss"] for r in cpu.values()}) == 1,
+          f"mesh step: the ranks' losses differ: {card} / {cpu}")
+    err = abs(card[0]["loss"] - cpu[0]["loss"])
+    check(err <= MESH_STEP_TOL, f"mesh step: the card fleet's loss "
+          f"{card[0]['loss']} is {err:.3g} from the CPU fleet's "
+          f"{cpu[0]['loss']} (> {MESH_STEP_TOL})")
+    with np.load(os.path.join(work, "step_cuda.npz")) as a, \
+            np.load(os.path.join(work, "step_cpu.npz")) as b:
+        rel = {k: float(np.linalg.norm(a[k] - b[k])
+                        / max(np.linalg.norm(b[k]), 1e-30)) for k in b.files}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= MESH_STEP_GRAD_TOL, f"mesh step: gradient {worst} "
+          f"of the card fleet is {rel[worst]:.3g} from the CPU fleet's")
+    print(f"mesh (a): reduced qwen3-moe, one loss and backward over "
+          f"{MESH_STEP_MESH} (4 gloo ranks on the card, 4 on the CPU; "
+          f"{wall:.1f} s with the processes' start): loss {card[0]['loss']:.6f}"
+          f" on every card rank vs {cpu[0]['loss']:.6f} on the CPU ranks "
+          f"(|diff| {err:.3g} <= {MESH_STEP_TOL}); gradients put back "
+          f"together, worst {worst} at {rel[worst]:.3g} (<= "
+          f"{MESH_STEP_GRAD_TOL}); launches a card rank "
+          f"{card[0]['launches']}", flush=True)
+    return {r: card[r]["launches"] for r in card}
+
+
+def mesh_serve_phase(dev, work: str) -> dict:
+    """(b) qwen3-moe-30b-a3b at full width cut to FAMILY_LAYERS layers
+    (PR 21's cut) over ``model=4``: a prefill of 2 prompts of 1024 tokens
+    and 16 decode steps on one card, then on 4 ranks holding a quarter of
+    its experts, heads and vocabulary each; logits within MESH_SERVE_TOL.
+    The router is replicated: as in phase 17, rank 0's router inputs of
+    every call go through one card's router, and the ids must be rank
+    0's but at ties within FLIP_TOL.  End to end (each run's own hidden
+    states, which differ by the f32 reduce's rounding) the routings that
+    differ are counted, and the logits check holds their effect."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"),
+                              n_layers=FAMILY_LAYERS)
+    model = build_model(cfg, dev, seed=0)
+    toks = torch.from_numpy(mesh_tokens(
+        cfg, 24, (MESH_SERVE_LANES, MESH_SERVE_PROMPT + MESH_SERVE_DECODE)
+    )).to(dev)
+    want, want_routes, single = mesh_serve(
+        model, toks, lambda: torch.cuda.synchronize(dev))
+    routers = model.tree()["blocks"]["moe"]["router"].detach().clone()
+    del model
+    free_card()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(4, ["--mesh-worker", "serve", work, "cuda"],
+                        MESH_TIMEOUT_S, "mesh serve")
+    wall = time.perf_counter() - t0
+    got = np.load(os.path.join(work, "serve_mesh.npy"))
+    routes = torch.load(os.path.join(work, "serve_routes.pt"))
+    check(bool(np.isfinite(got).all()), "mesh serve: logits not finite")
+    bad = np.abs(got - want) > MESH_SERVE_TOL * (1 + np.abs(want))
+    check(not bad.any(), f"mesh serve: {int(bad.sum())} logits off the one "
+          f"card's by more than {MESH_SERVE_TOL} (max |diff| "
+          f"{float(np.abs(got - want).max()):.3g})")
+    check(len(routes) == len(want_routes) == cfg.n_layers * (
+        1 + MESH_SERVE_DECODE), f"mesh serve: {len(routes)} router calls "
+        f"on the mesh, {len(want_routes)} on one card")
+    flips = rows = moved = 0
+    for i, ((x2d, ids), (_, ids_1)) in enumerate(zip(routes, want_routes)):
+        ia, _, pa = moe._route(x2d.to(dev), routers[i % cfg.n_layers],
+                               cfg.experts_per_token)
+        flips += route_flips(ia.cpu(), pa.cpu(), ids,
+                             ("one card", "the mesh's rank 0"))
+        rows += ids.shape[0]
+        moved += int((ids != ids_1).any(-1).sum())
+    ms = {r: {k: ranks[r][k] for k in ("prefill_s", "decode_s")}
+          for r in ranks}
+    print(f"mesh (b): qwen3-moe-30b-a3b at full width, {cfg.n_layers} "
+          f"layers, over {MESH_SERVE_MESH} (4 gloo ranks on one card): "
+          f"prefill {MESH_SERVE_LANES} x {MESH_SERVE_PROMPT} and "
+          f"{MESH_SERVE_DECODE} decode steps; logits within "
+          f"{MESH_SERVE_TOL} of one card (max |diff| "
+          f"{float(np.abs(got - want).max()):.3g}); routes compared call by "
+          f"call on rank 0's router inputs: {rows} token rows in "
+          f"{len(routes)} calls, {flips} flips at ties within {FLIP_TOL}; "
+          f"end to end (each run's own hidden states) {moved} rows routed "
+          f"otherwise; one card prefill {single['prefill_s']:.3f} s decode "
+          f"{single['decode_s']:.3f} s peak {single['peak'] / 2**30:.2f} GiB;"
+          f" per rank {json.dumps(ms)}, peak GiB "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks.values()]}, "
+          f"flash_attention launches "
+          f"{[r['launches'].get('flash_attention', 0) for r in ranks.values()]}"
+          f", all-reduce calls/bytes/s per rank "
+          f"{json.dumps(ranks[0]['traffic'])}; {wall:.1f} s with the "
+          "processes' start", flush=True)
+    return {r: ranks[r]["launches"] for r in ranks}
+
+
+def mesh_train_phase(dev, work: str) -> dict:
+    """(c) hymba-1.5b at full width and depth over ``model=2`` (its 25
+    attention heads replicated, the SSM, MLP and vocabulary split): one
+    loss and gradient, then one train step, through
+    ``flash_attention_trainable`` and ``ssd_scan_trainable`` on each
+    rank's heads, against one card's on the same weights and batch.
+
+    A float32 witness: the same loss and gradient with the compute dtype
+    float32, on one card and on the ranks.  The two float32 gradients
+    must agree to MESH_TRAIN_F32_TOL, which a sharding fault would break;
+    and each bf16 run is held to the witness, the mesh's within
+    MESH_TRAIN_WITNESS times one card's distance (plus
+    MESH_TRAIN_F32_TOL), so that the bf16 gap between the two runs is
+    shown to be each side's own bf16 rounding.
+
+    The sequence is cut from phase 18's 4096 x 2 to MESH_TRAIN_SEQ x 2
+    for time, not memory: one card's step holds 6.6 GB of parameters,
+    as much of gradients and 13 GB of moments, each rank half of it, and
+    phase 18 fits the whole step at 4096 in 80 GB; but every layer
+    all-reduces its [2, S, 1600] float32 activations about six times a
+    step (forward, remat recompute, backward), through gloo's host
+    staging at well under 1 GB/s, which at 4096 costs tens of seconds a
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import materialize
+    from repro_torch.models.parallel import ParallelCfg
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.loop import make_train_step
+
+    def save(grads, folder):
+        os.makedirs(os.path.join(work, folder))
+        for k, g in grads.items():
+            np.save(os.path.join(work, folder, k + ".npy"), g.cpu().numpy())
+
+    cfg = configs.get("hymba-1.5b")
+    model = build_model(cfg, dev, seed=0, par=ParallelCfg(remat="full"))
+    batch = materialize(cfg, "train_4k", seq=MESH_TRAIN_SEQ,
+                        batch=MESH_TRAIN_BATCH, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    loss, grads = model.loss(batch)
+    torch.cuda.synchronize(dev)
+    loss_s = time.perf_counter() - t0
+    loss32, grads32 = f32_loss(model, batch)
+    # One card's bf16 gradient against the witness, leaf by leaf (as
+    # rel() below: relative, or absolute where the witness is zero).
+    witness = {}
+    for k in grads:
+        d, n = (float(torch.linalg.vector_norm(t))
+                for t in (grads[k] - grads32[k], grads32[k]))
+        witness[k] = d / n if n else d
+    save(grads, "grads")
+    save(grads32, "grads32")
+    del grads, grads32
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=8))
+    opt = adamw_init(dict(model.named_parameters()), tc.opt)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, _, m = make_train_step(model, tc)(opt, None, batch)
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    single = {"loss": float(loss), "loss32": float(loss32),
+              "step_loss": float(m["loss"]),
+              "grad_norm": float(m["grad_norm"])}
+    del model, opt, m, batch
+    free_card()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, ["--mesh-worker", "train", work, "cuda"],
+                        MESH_TIMEOUT_S, "mesh train")
+    wall = time.perf_counter() - t0
+    # Each leaf's relative error over the whole leaf: a sharded leaf's
+    # blocks summed over the ranks, a replicated leaf on each rank.
+    sharded = set(ranks[0]["sharded"])
+
+    def rel(key):
+        out = {}
+        for name in ranks[0]["grad_sq"][key]:
+            parts = [r["grad_sq"][key][name] for r in ranks.values()]
+            if name in sharded:
+                parts = [[sum(p[0] for p in parts),
+                          sum(p[1] for p in parts)]]
+            out[name] = max(math.sqrt(d / n) if n else math.sqrt(d)
+                            for d, n in parts)
+        return out
+    bf16, f32, mesh_w = rel("grads"), rel("f32"), rel("grads32")
+    top = sorted(bf16, key=bf16.get, reverse=True)[:3]
+    worst32 = max(f32, key=f32.get)
+    print(f"mesh (c): hymba-1.5b at full width and depth over "
+          f"{MESH_TRAIN_MESH} (2 gloo ranks on one card), seq "
+          f"{MESH_TRAIN_SEQ} x {MESH_TRAIN_BATCH}, remat full: loss "
+          f"{[round(r['loss'], 6) for r in ranks.values()]} vs one card "
+          f"{single['loss']:.6f}; step loss / grad norm "
+          f"{[(round(r['step_loss'], 6), round(r['grad_norm'], 4)) for r in ranks.values()]}"
+          f" vs {single['step_loss']:.6f} / {single['grad_norm']:.4f}; the "
+          f"worst bf16 gradient leaves against one card's (relative "
+          f"Frobenius, <= {MESH_TRAIN_GRAD_TOL}), each run's own distance "
+          f"to the float32 witness beside them (mesh, one card): "
+          f"{json.dumps({k: [round(v[k], 5) for v in (bf16, mesh_w, witness)] for k in top})}; "
+          f"float32 witness: loss "
+          f"{[round(r['loss32'], 6) for r in ranks.values()]}"
+          f" vs one card {single['loss32']:.6f}, the worst leaf {worst32} "
+          f"at {f32[worst32]:.3g} (<= {MESH_TRAIN_F32_TOL}); loss+backward"
+          f" s per rank {[round(r['loss_s'], 3) for r in ranks.values()]} "
+          f"vs one card {loss_s:.3f}; step s "
+          f"{[round(r['step_s'], 3) for r in ranks.values()]} vs "
+          f"{step_s:.3f}; peak GiB "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks.values()]} vs "
+          f"{peak / 2**30:.2f}; launches per rank (bf16 loss and backward) "
+          f"{[r['launches'] for r in ranks.values()]}, in all "
+          f"{[r['launches_run'] for r in ranks.values()]}; all-reduce "
+          f"calls/bytes/s of rank 0's loss and backward "
+          f"{json.dumps(ranks[0]['traffic'])}; {wall:.1f} s with the "
+          "processes' start", flush=True)
+    for r in ranks.values():
+        for k in ("loss", "step_loss", "grad_norm"):
+            err = abs(r[k] - single[k]) / abs(single[k])
+            check(err <= MESH_TRAIN_TOL, f"mesh train: rank {r['rank']}'s "
+                  f"{k} {r[k]} is {err:.3g} from one card's {single[k]}")
+        err = abs(r["loss32"] - single["loss32"]) / abs(single["loss32"])
+        check(err <= MESH_TRAIN_F32_TOL, f"mesh train: rank {r['rank']}'s "
+              f"float32 loss {r['loss32']} is {err:.3g} from one card's "
+              f"{single['loss32']}")
+        n = 2 * cfg.n_layers
+        check(r["launches"].get("flash_attention", 0) == n
+              and r["launches"].get("ssd_scan", 0) == n,
+              f"mesh train: rank {r['rank']} launched {r['launches']}, "
+              f"expected {n} of each (forward and remat recompute)")
+    check(bf16[top[0]] <= MESH_TRAIN_GRAD_TOL, f"mesh train: gradient "
+          f"{top[0]} is {bf16[top[0]]:.3g} from one card's")
+    check(f32[worst32] <= MESH_TRAIN_F32_TOL, f"mesh train: float32 "
+          f"gradient {worst32} is {f32[worst32]:.3g} from one card's")
+    for k in bf16:
+        check(mesh_w[k] <= MESH_TRAIN_WITNESS * witness[k]
+              + MESH_TRAIN_F32_TOL, f"mesh train: the mesh's bf16 gradient "
+              f"{k} is {mesh_w[k]:.3g} from the float32 witness, one "
+              f"card's {witness[k]:.3g}")
+    return {r: ranks[r]["launches_run"] for r in ranks}
+
+
+def mesh_path(dev) -> dict:
+    """Phase 21: (a) the reduced qwen3-moe 2 x 2 step, card fleet vs CPU
+    fleet; (b) qwen3-moe-30b-a3b served over ``model=4``; (c) hymba-1.5b
+    trained over ``model=2``.  Launches are the mesh ranks' own (the
+    one-card comparisons are not counted)."""
+    free_card()               # the ranks share the card with this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        per_rank = [mesh_step(work), mesh_serve_phase(dev, work),
+                    mesh_train_phase(dev, work)]
+    launches = {}
+    for part in per_rank:
+        for counts in part.values():
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+    seconds = time.perf_counter() - t0
+    print(f"mesh: phase 21 in {seconds:.1f} s, launches on the ranks "
+          f"{launches}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3755,10 +4332,13 @@ def main() -> int:
     lap("dryrun")
     probe = probe_path(dev)
     lap("probe")
+    mesh = mesh_path(dev)
+    lap("mesh")
     for kern, name in zip(kernels, ("schedule_eval", "gate_quantile",
                                     "flash_attention", "ssd_scan")):
         kern["launches"] += (dry["launches"].get(name, 0)
-                             + probe["launches"].get(name, 0))
+                             + probe["launches"].get(name, 0)
+                             + mesh["launches"].get(name, 0))
     print(f"phase seconds ({sum(laps.values()):.1f} in all): "
           + json.dumps(laps), flush=True)
 
@@ -3766,7 +4346,7 @@ def main() -> int:
              "forecast": forecast, "structure": structure, "stream": stream,
              "learn": learn, "cluster": cluster, "shard": sharded,
              "families": family, "train": train, "dryrun": dry,
-             "probe": probe}
+             "probe": probe, "mesh": mesh}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",
@@ -3787,6 +4367,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:] == ["--fleet-worker"]:
             sys.exit(fleet_worker())
+        if sys.argv[1:2] == ["--mesh-worker"]:
+            sys.exit(mesh_worker(*sys.argv[2:5]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

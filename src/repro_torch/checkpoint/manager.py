@@ -12,10 +12,19 @@ either package restores a subtree the other wrote:
 * **Keep-k**: older checkpoints are removed after a successful save,
   never before.
 
+* **Per process**: each rank of a fleet writes its own shard as
+  ``proc_{rank}.npz`` into the same ``step_N.tmp``, and marks it done; the
+  rank that finds every shard done renames the directory (``processes``
+  ranks in all), and the others wait for the rename, so that a finished
+  ``save`` (``wait()``) means a complete checkpoint on every rank.  The
+  manifest records the mesh the shards were cut for (``mesh``, its axis
+  sizes); a restore on another mesh raises, naming both.
+
 Format: ``step_{N:08d}/proc_{i}.npz`` (one array per leaf, keyed by its
 ``/``-joined path, e.g. ``params/blocks/attn/wq``) and ``manifest.json``
-with the step and the keys.  numpy has no bfloat16, so a bfloat16 leaf is
-stored as float32 (exact) and cast back on restore.
+with the step and the keys (and the mesh, where there is one).  numpy has
+no bfloat16, so a bfloat16 leaf is stored as float32 (exact) and cast
+back on restore.
 """
 from __future__ import annotations
 
@@ -23,9 +32,12 @@ import json
 import os
 import shutil
 import threading
+import time
 
 import numpy as np
 import torch
+
+SHARD_WAIT_S = 600     # how long a rank waits for the others' shards
 
 
 def _host(leaf) -> np.ndarray:
@@ -51,11 +63,18 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 
 class CheckpointManager:
+    """``mesh``: the axis sizes the shards are cut for (``{"data": 2,
+    "model": 2}``; None on one card); ``processes``: the ranks that each
+    write a shard of every checkpoint."""
+
     def __init__(self, directory: str, keep: int = 3,
-                 process_index: int = 0):
+                 process_index: int = 0, mesh: dict | None = None,
+                 processes: int = 1):
         self.dir = directory
         self.keep = keep
         self.process_index = process_index
+        self.mesh = dict(mesh) if mesh is not None else None
+        self.processes = processes
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
 
@@ -75,13 +94,44 @@ class CheckpointManager:
         tmp = final + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         np.savez(os.path.join(tmp, f"proc_{self.process_index}.npz"), **flat)
+        if self.processes > 1:
+            open(os.path.join(tmp, f"done_{self.process_index}"), "w").close()
+            done = all(os.path.exists(os.path.join(tmp, f"done_{i}"))
+                       for i in range(self.processes))
+            if not (done and self._claim(tmp)):
+                self._await(final)
+                return
+            for i in range(self.processes):
+                os.unlink(os.path.join(tmp, f"done_{i}"))
+            os.rmdir(os.path.join(tmp, "claim"))
+        manifest = {"step": step, "keys": sorted(flat)}
+        if self.mesh is not None:
+            manifest["mesh"] = self.mesh
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump({"step": step, "keys": sorted(flat)}, f)
+            json.dump(manifest, f)
         if os.path.exists(final):
             shutil.rmtree(tmp, ignore_errors=True)
         else:
             os.replace(tmp, final)
         self._gc()
+
+    @staticmethod
+    def _claim(tmp: str) -> bool:
+        """True for exactly one of the ranks that found every shard done."""
+        try:
+            os.mkdir(os.path.join(tmp, "claim"))
+            return True
+        except FileExistsError:
+            return False
+
+    def _await(self, final: str) -> None:
+        deadline = time.monotonic() + SHARD_WAIT_S
+        while not os.path.exists(final):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{final}: not every one of {self.processes} ranks "
+                    f"wrote its shard within {SHARD_WAIT_S} s")
+            time.sleep(0.05)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -112,6 +162,12 @@ class CheckpointManager:
         step = self.latest() if step is None else step
         if step is None:
             return None
+        with open(os.path.join(self.dir, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            saved = json.load(f).get("mesh")
+        if saved != self.mesh:
+            raise ValueError(f"checkpoint {step} holds shards for the mesh "
+                             f"{saved}, but this run's mesh is {self.mesh}")
         path = os.path.join(self.dir, f"step_{step:08d}",
                             f"proc_{self.process_index}.npz")
         with np.load(path) as data:

@@ -6,7 +6,10 @@ loaded with ``ctypes``; nothing is built when a module is imported.  The
 library lands in ``build/`` beside this file (listed in ``.gitignore``),
 named by a hash of its source, the shared headers ``csrc/*.cuh`` and the
 flags, so an edited source or header is rebuilt and an unchanged one is
-loaded again.
+loaded again.  A build holds an exclusive ``flock`` on ``build/<name>.lock``
+(released by the kernel if its process dies), so that the ranks of a
+fleet started on a machine with nothing built compile each kernel once
+and load it after.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
@@ -17,6 +20,7 @@ need a gradient through one.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -92,11 +96,20 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` unless its library is already built (by
+    this process or another: the build waits for another's to end)."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        return _compile(name, out, verbose)
+
+
+def _compile(name: str, out: Path, verbose: bool) -> Path:
     # Build into a temporary name and rename: concurrent builders never
     # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -19,6 +19,7 @@ HBM_BW = 3.35e12         # device memory rate, H100 SXM data sheet
 TF32_FLOPS = 495e12      # dense TF32 tensor-core rate, H100 SXM data sheet
 FP32_FLOPS = 67e12       # float32 off the tensor cores, H100 SXM data sheet
 LINK_BW = 450e9          # NVLink 4, one direction, H100 SXM data sheet
+                         # (the roofline's collective term)
 
 # The counting modes entered, outermost first.  Process-wide (autograd
 # runs a CUDA backward on a thread of its own): count on one thread at a

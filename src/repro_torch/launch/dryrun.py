@@ -10,23 +10,31 @@ The counterpart of ``repro.launch.dryrun``.  For each cell this script:
   3. runs it once under ``launch.op_analysis.CostMode``: FLOPs (aten
      formulas plus each kernel's own), op bytes and peak live bytes, the
      layer stack counted L times;
-  4. records them whole and per device (whole / devices), with the
-     analytic per-device parameter bytes under the mesh's rules, and
-     writes one JSON per cell under ``experiments/dryrun_torch/`` (not the
-     reference's ``experiments/dryrun/``, which both packages' cluster
-     energy models read).
+  4. records them per device, with the analytic per-device parameter
+     bytes under the mesh's rules, and writes one JSON per cell under
+     ``experiments/dryrun_torch/`` (not the reference's
+     ``experiments/dryrun/``, which both packages' cluster energy models
+     read).
 
 It asks for no card and allocates nothing: ``meta`` tensors carry shapes
 and dtypes only, and the kernel entries return their outputs' shapes
 there.  The same ``build_cell`` runs on a real device
 (``device="cuda"``): that is how ``chip_smoke.py`` holds the counts to a
-step on the card.  A mesh
-of more than one device is counted as the whole (unsharded) program: the
-port places no mesh, and the record says that the collective term is not
-modelled.  Where the policy asks for microbatches, one microbatch's
-step is counted, plus the loss and gradient of the other ``n - 1`` (their
-shapes are identical), and the peak adds the accumulated float32
-gradient.
+step on the card.  On a mesh of more than one device the counted program
+is rank 0's local step: its blocks of the parameters
+(``params.param_local_shapes``) and of the batch
+(``sharding.batch_shard``) under a counted mesh
+(``ProcessMesh.counted``), on which ``models.parallel``'s collectives
+count the bytes they would reduce and move none.  The record then holds
+``collective_bytes`` (per mesh axis in ``coll_mix``) and ``wire_bytes``,
+a ring all-reduce's ``2 (n - 1) / n`` of them, which ``roofline`` turns
+into the collective term.  A placed run holds ZeRO stage 0 (ZeRO is not
+ported), so the counted step does too whatever the policy's stage; the
+analytic parameter bytes keep the policy's, and where that stage is above
+0 the record's ``fits`` is None (not modelled), with ``fits_note``.  Where the policy asks for
+microbatches, one microbatch's step is counted, plus the loss and
+gradient of the other ``n - 1`` (their shapes are identical), and the
+peak adds the accumulated float32 gradient.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape train_4k
@@ -49,14 +57,16 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.launch import op_analysis
-from repro_torch.launch.mesh import MeshShape
-from repro_torch.launch.sharding import effective_rules, make_parallel
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.launch.sharding import (batch_shard, effective_rules,
+                                         make_parallel)
 from repro_torch.models.api import Model, model_defs
 from repro_torch.models.common import (ArchConfig, SHAPES, ShapeCfg,
                                        input_specs, materialize,
                                        supports_shape)
-from repro_torch.models.params import (init_params, param_specs,
-                                       sharded_size_bytes, tree_map_defs)
+from repro_torch.models.params import (init_params, local_shape,
+                                       param_specs, sharded_size_bytes,
+                                       tree_map_defs)
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train.loop import TrainConfig, make_train_step
 
@@ -181,11 +191,14 @@ def _kind_shape(kind: str) -> str:
 
 
 def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
-               device: str | torch.device = "meta", seed: int = 0) -> Cell:
+               device: str | torch.device = "meta", seed: int = 0,
+               mesh: MeshShape | None = None) -> Cell:
     """The cell's program on ``device``.  On ``meta`` the parameters and
     inputs are empty ``meta`` tensors; on a real device the weights are
     drawn from a ``torch.Generator`` seeded with ``seed`` and the inputs
-    by ``materialize`` (so the step computes on finite numbers)."""
+    by ``materialize`` (so the step computes on finite numbers).  With a
+    ``mesh`` of more than one device (``meta`` only), rank 0's local step
+    on a counted mesh."""
     sc = _shape_cfg(shape)
     dev = torch.device(device)
     if dev.type != "meta":
@@ -197,18 +210,30 @@ def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
     if micro > 1:
         sc = dataclasses.replace(sc, batch=sc.batch // micro)
     defs = _cast_defs(model_defs(cfg), dtype_of(policy["param_dtype"]))
+    par = make_parallel(cfg, None, remat=str(policy["remat"]),
+                        attn_block=int(policy["attn_block"]))
+    if mesh is not None and mesh.size > 1:
+        if dev.type != "meta":
+            raise ValueError("a mesh's local step is counted on meta only")
+        par = make_parallel(cfg, ProcessMesh.counted(mesh),
+                            remat=par.remat, attn_block=par.attn_block)
+        rules = par.effective_rules()
+        defs = tree_map_defs(lambda d: dataclasses.replace(
+            d, shape=local_shape(d, rules, par.mesh)), defs)
     if dev.type == "meta":
         params = param_specs(defs, dev)
-        batch = {k: torch.empty(s.shape, dtype=s.dtype, device=dev)
-                 for k, s in input_specs(cfg, sc).items()}
+        # Each key's block as a tensor of its own (a view would hold, and
+        # count, the whole batch's storage).
+        batch = {k: t.clone() for k, t in batch_shard(
+            {k: torch.empty(s.shape, dtype=s.dtype, device=dev)
+             for k, s in input_specs(cfg, sc).items()}, cfg, par).items()}
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_params(gen, defs)
         batch = materialize(cfg, _kind_shape(sc.kind), seq=sc.seq,
                             batch=sc.batch, seed=seed, device=dev)
-    model = Model(cfg, params, make_parallel(str(policy["remat"]),
-                                             int(policy["attn_block"])))
+    model = Model(cfg, params, par)
     live = list(model.parameters())
     if sc.kind == "train":
         opt_cfg = AdamWConfig(moment_dtype=dtype_of(policy["moment_dtype"]))
@@ -224,17 +249,30 @@ def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
 def count_cell(cell: Cell) -> tuple[dict, dict, op_analysis.CostMode]:
     """``(cost, memory, mode)`` of one step of ``cell``: the counted step,
     plus ``micro - 1`` more microbatches' loss and gradient; the peak adds
-    the float32 gradient they accumulate into."""
+    the float32 gradient they accumulate into.  ``cost`` adds the
+    collectives' ``collective_bytes`` and ``coll_mix`` (per axis)."""
     _, mode = op_analysis.count(cell.fn, *cell.args, live=cell.live)
     cost = op_analysis.cost_dict(mode)
+    coll = op_analysis.collective_dict(mode)
     memory = op_analysis.memory_dict(mode)
     if cell.micro > 1:
         _, extra = op_analysis.count(cell.loss, cell.args[2],
                                      live=cell.live)
         for k in cost:
             cost[k] += (cell.micro - 1) * op_analysis.cost_dict(extra)[k]
+        for axis, b in op_analysis.collective_dict(extra).items():
+            coll[axis] = coll.get(axis, 0) + (cell.micro - 1) * b
         memory["temp_bytes"] += sum(4 * p.numel() for p in cell.live)
+    cost["collective_bytes"] = float(sum(coll.values()))
+    cost["coll_mix"] = coll
     return cost, memory, mode
+
+
+def wire_bytes(coll_mix: dict, mesh: MeshShape) -> float:
+    """The bytes a rank sends for ``coll_mix``'s all-reduces (bytes per
+    axis) as rings: ``2 (n - 1) / n`` of each axis's bytes."""
+    return float(sum(b * 2 * (mesh.shape[a] - 1) / mesh.shape[a]
+                     for a, b in coll_mix.items()))
 
 
 def _param_bytes(cfg: ArchConfig, dtype: torch.dtype, rules,
@@ -270,27 +308,38 @@ def run_cell(arch: str, shape: str | ShapeCfg,
     rec["policy"] = {k: str(v) for k, v in policy.items()}
     t0 = time.time()
     try:
-        cost, memory, _ = count_cell(build_cell(cfg, sc, policy))
+        cost, memory, _ = count_cell(build_cell(cfg, sc, policy,
+                                                mesh=mesh))
+        coll = cost.pop("coll_mix")
         devices = mesh.size
         rules = effective_rules(cfg, mesh, int(policy["zero_stage"]))
-        rec["cost_total"] = cost
+        rec["cost_total"] = {k: v * devices for k, v in cost.items()}
         rec["memory"] = memory
-        rec["flops"] = cost["flops"] / devices
-        rec["bytes"] = cost["bytes"] / devices
+        rec["flops"] = cost["flops"]
+        rec["bytes"] = cost["bytes"]
+        if devices > 1:
+            rec["local_step"] = ("rank 0's blocks at ZeRO stage 0 on a "
+                                 "counted mesh; cost_total is it times "
+                                 "the devices")
+            rec["collective_bytes"] = cost["collective_bytes"]
+            rec["coll_mix"] = coll
+            rec["wire_bytes"] = wire_bytes(coll, mesh)
         rec["param_bytes_per_device"] = _param_bytes(
             cfg, dtype_of(policy["param_dtype"]), rules, mesh)
         if sc.kind == "train":
             rec["moment_bytes_per_device"] = 2 * _param_bytes(
                 cfg, dtype_of(policy["moment_dtype"]), rules, mesh)
         peak = memory["argument_bytes"] + memory["temp_bytes"]
-        if devices == 1:
-            rec["fits"] = peak <= hbm_bytes
-        else:
+        stage = int(policy["zero_stage"])
+        if devices > 1 and stage:
+            # The counted step holds whole blocks (stage 0); the policy's
+            # program shards them further over data.
             rec["fits"] = None
-            rec["collective"] = (f"not modelled: the whole program on "
-                                 f"{devices} devices counted as one, no "
-                                 "collective traffic; memory is the whole "
-                                 "program's")
+            rec["fits_note"] = (f"not modelled: the policy's ZeRO stage "
+                                f"{stage} is not ported, and the counted "
+                                "step is stage 0's")
+        else:
+            rec["fits"] = peak <= hbm_bytes
         rec["hbm_bytes"] = hbm_bytes
         rec["status"] = "ok"
     except Exception as e:  # noqa: BLE001 - cell failures are data
@@ -311,7 +360,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="data=1,model=1",
-                    help="mesh axes and sizes, e.g. data=16,model=16")
+                    help="mesh axes and sizes, e.g. data=16,model=16 "
+                         "(rank 0's local step is counted)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-done", action="store_true")
     ap.add_argument("--tag", default="")

@@ -32,10 +32,13 @@ counted.
 
 :func:`cost_dict` and :func:`memory_dict` return the reference's keys, so
 ``roofline.analyze`` reads the port's records as the reference's reads
-its own.  Not ported, and why: the collective parse and wire bytes
-(one card has no collectives), the bf16-dot correction (an artifact of
-XLA's CPU backend) and the probe extrapolation over a ``while`` body
-counted once (the port's layer stack is a Python loop, counted L times).
+its own.  :func:`collective_dict` is the counterpart of the reference's
+collective parse: the bytes ``models.parallel``'s all-reduces reduced
+during the call, per mesh axis (they are the only place bytes cross
+ranks, and on a counted mesh they count without moving).  Not ported,
+and why: the bf16-dot correction (an artifact of XLA's CPU backend) and
+the probe extrapolation over a ``while`` body counted once (the port's
+layer stack is a Python loop, counted L times).
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import cost as kcost
+from repro_torch.models import parallel
 
 aten = torch.ops.aten
 
@@ -94,6 +98,8 @@ class CostMode(TorchDispatchMode):
         self.output_alias_bytes = 0
         self._storages: dict[int, int] = {}
         self.quiet = 0
+        self.collective: dict[str, int] = {}   # all-reduce bytes per axis,
+        # set by count()
         self._arguments: set[int] = set()
         for t in live:
             self._arguments.add(self._track(t))
@@ -186,8 +192,12 @@ def count(fn: Callable, *args, live: Iterable[torch.Tensor] = (), **kwargs):
     """``(fn(*args, **kwargs), mode)``: the call run under a fresh
     :class:`CostMode` whose live tensors are ``args``' and ``live``'s."""
     mode = CostMode(live=[*tensors(args, kwargs), *live])
+    before = {a: v[1] for a, v in parallel.TRAFFIC.items()}
     with mode:
         out = fn(*args, **kwargs)
+    mode.collective = {a: v[1] - before.get(a, 0)
+                       for a, v in parallel.TRAFFIC.items()
+                       if v[1] > before.get(a, 0)}
     mode.output_bytes = sum(t.untyped_storage().nbytes() for t in
                             {_storage_key(t): t
                              for t in tensors(out)}.values())
@@ -199,6 +209,11 @@ def cost_dict(mode: CostMode) -> dict:
     """The reference's ``cost_dict`` keys of a counted call."""
     return {"flops": float(mode.flops), "bytes": float(mode.bytes),
             "transcendentals": float(mode.transcendentals)}
+
+
+def collective_dict(mode: CostMode) -> dict:
+    """The bytes the counted call all-reduced, per mesh axis."""
+    return {a: int(b) for a, b in sorted(mode.collective.items())}
 
 
 def memory_dict(mode: CostMode) -> dict:

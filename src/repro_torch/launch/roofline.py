@@ -8,10 +8,13 @@ cell, one NVIDIA H100 SXM per device:
     collective_s = wire_bytes_per_device / LINK_BW
 
 FLOPs and op bytes come from ``launch.op_analysis`` (every aten op and
-every kernel's own formula, the layer stack counted L times); the port
-has no collective parse, so ``collective_s`` is 0 unless a record carries
-``wire_bytes``, and a record of a mesh of more than one device says the
-term is not modelled.  ``memory_hlo_s`` is the op bytes' time (unfused:
+every kernel's own formula, the layer stack counted L times), per
+device: on a mesh, rank 0's local step.  ``wire_bytes`` are the bytes a
+rank sends for the all-reduces ``models.parallel`` counted in that step
+(a ring's ``2 (n - 1) / n`` of them, per mesh axis), and ``LINK_BW`` is
+NVLink 4's one-direction rate from the H100 SXM data sheet, not a
+measured rate (the port's fleets on one card reduce through gloo's host
+staging, far slower).  ``memory_hlo_s`` is the op bytes' time (unfused:
 an overestimate); the bottleneck decision uses the analytic post-fusion
 model, as the reference's does.
 

@@ -1,29 +1,44 @@
-"""Per-(arch x mesh) sharding policy: rules and batch specs.
+"""Per-(arch x mesh) sharding policy: rules, batch specs, the parallel
+config and each rank's block of a batch.
 
 The counterpart of ``repro.launch.sharding``, on a :class:`MeshShape`
-(axis names and sizes; no devices are placed).  ``auto_rules`` adapts the
-logical->mesh table to an architecture: axes that do not divide the
-tensor axis (e.g. 56 query heads or 25 kv-heads on a 16-way ``"model"``
-axis) fall back to replication; ``zero_stage=3`` additionally shards
-every weight's ``embed`` dim over the data axes (ZeRO-3).
-``batch_pspecs`` gives every ``input_specs`` key its mesh axes per
-dimension (a ``PartitionSpec`` as a tuple): batch dims over
-("pod","data") when divisible, KV caches' head dims over ``"model"`` when
-divisible, scalars replicated.
+(axis names and sizes) or a :class:`ProcessMesh` (a shape placed on a
+fleet).  ``auto_rules`` adapts the logical->mesh table to an
+architecture: axes that do not divide the tensor axis (e.g. 56 query
+heads or 25 kv-heads on a 16-way ``"model"`` axis) fall back to
+replication; ``zero_stage=3`` additionally shards every weight's
+``embed`` dim over the data axes (ZeRO-3).  ``batch_pspecs`` gives every
+``input_specs`` key its mesh axes per dimension (a ``PartitionSpec`` as a
+tuple): batch dims over ("pod","data") when divisible, KV caches' head
+dims over ``"model"`` when divisible, scalars replicated.
 
-``make_parallel`` returns the port's one-card ``ParallelCfg`` (``remat``,
-``attn_block``): the mesh fields it would carry in the reference have no
-one-card meaning (``models/parallel.py``).  Not ported: ``batch_shardings``
-(``NamedSharding`` over placed devices), and the reference's sequence
-sharding switches (``seq_shard``, ``kv_seq_shard``), which nothing in the
-port sets.
+``make_parallel`` is the reference's, with a :class:`ProcessMesh`.
+:func:`batch_shard` is the counterpart of ``batch_shardings``: where the
+reference puts a global batch on the mesh under ``NamedSharding``s, it
+cuts this rank's block of every key.  Its caches are the blocks the
+model's layers hold: a KV cache the kv heads this rank's q heads read
+(``batch_pspecs``' kv-head block when kv heads shard, the GQA slice when
+only q heads do), an SSM state its head block, a conv state the rank's
+``ssm_inner`` channels with the replicated B/C channels (``batch_pspecs``
+replicates it: GSPMD would gather the new column each step, and the port
+gathers nothing).  Not ported: ZeRO on a mesh (every stage needs
+``all_gather``/``reduce_scatter``), and the sequence sharding
+switches (``seq_shard``, ``kv_seq_shard``), which nothing in the port
+sets, and ``moe_ep=False``: experts sharded over ``model`` always take
+the expert-parallel dispatch (the reference's other branch is GSPMD's
+sharding of the single-device dispatch, which needs ``all_gather``).
 """
 from __future__ import annotations
 
-from repro_torch.launch.mesh import MeshShape
+import torch
+
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.models.attention import head_blocks
 from repro_torch.models.common import ArchConfig, SHAPES, ShapeCfg, input_specs
-from repro_torch.models.params import DEFAULT_RULES, ShardingRules
-from repro_torch.models.parallel import ParallelCfg
+from repro_torch.models.params import (DEFAULT_RULES, ParamDef,
+                                       ShardingRules, local_slices)
+from repro_torch.models.parallel import ParallelCfg, sum_no_grad
+from repro_torch.models.ssm import ssm_blocks
 
 
 def _div(n: int, size: int) -> bool:
@@ -73,10 +88,22 @@ def effective_rules(cfg: ArchConfig, mesh: MeshShape | None,
     return r
 
 
-def make_parallel(remat: str = "full", attn_block: int = 2048
-                  ) -> ParallelCfg:
-    """The port's ``ParallelCfg`` of a cell's policy."""
-    return ParallelCfg(remat=remat, attn_block=attn_block)
+def make_parallel(cfg: ArchConfig, mesh: ProcessMesh | None, *,
+                  zero_stage: int = 0, remat: str = "full",
+                  attn_block: int = 2048) -> ParallelCfg:
+    """The ``ParallelCfg`` of ``cfg`` on ``mesh`` (None: one card): the
+    rules ``auto_rules`` adapts to the arch.  A mesh takes ZeRO stage 0
+    only: every stage shards weights or moments over ``data``, which
+    needs ``all_gather`` / ``reduce_scatter``, and the port's collectives
+    are all-reduces."""
+    if mesh is not None and zero_stage:
+        raise NotImplementedError(
+            f"zero_stage={zero_stage} on a mesh: ZeRO is not ported (it "
+            "needs all_gather / reduce_scatter; the port's collectives are "
+            "all-reduces)")
+    rules = auto_rules(cfg, mesh) if mesh is not None else DEFAULT_RULES
+    return ParallelCfg(mesh=mesh, rules=rules, remat=remat,
+                       attn_block=attn_block)
 
 
 # ---------------------------------------------------------------------------
@@ -103,29 +130,92 @@ def batch_pspecs(cfg: ArchConfig, shape: str | ShapeCfg, mesh: MeshShape,
                  rules: ShardingRules) -> dict[str, tuple]:
     """Each ``input_specs`` key's mesh axes per dimension."""
     sc = SHAPES[shape] if isinstance(shape, str) else shape
-    specs = input_specs(cfg, sc)
+    return {k: _key_pspec(k, s.shape, mesh)
+            for k, s in input_specs(cfg, sc).items()}
+
+
+def _key_pspec(k: str, shape: tuple, mesh: MeshShape) -> tuple:
     msize = mesh.shape.get("model", 1)
-    out: dict[str, tuple] = {}
-    for k, s in specs.items():
-        if not s.shape:                       # scalars (pos)
-            out[k] = ()
+    if not shape:                             # scalars (pos)
+        return ()
+    if k in ("k_cache", "v_cache", "enc_out", "enc_out_v"):
+        bt = _batch_axes_for(shape[1], mesh)  # [L, B, W|S, KVH, dh]
+        kv = "model" if _div(shape[3], msize) else None
+        return (None, bt, None, kv, None)
+    if k == "ssm_state":                      # [L, B, H, P, N]
+        bt = _batch_axes_for(shape[1], mesh)
+        hs = "model" if _div(shape[2], msize) else None
+        return (None, bt, hs, None, None)
+    if k == "conv_state":                     # [L, B, K-1, C]
+        return (None, _batch_axes_for(shape[1], mesh), None, None)
+    bt = _batch_axes_for(shape[0], mesh)      # [B, ...] tokens/labels/embeds
+    return (bt, *([None] * (len(shape) - 1)))
+
+
+def _block(t, dim: int, axes, mesh):
+    """``t``'s block along ``dim`` of the mesh axes ``axes`` (None: all)."""
+    if axes is None:
+        return t
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coord(a)
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def batch_shard(batch: dict, cfg: ArchConfig, par: ParallelCfg) -> dict:
+    """This rank's block of every key of a global ``batch`` (the model's
+    inputs in ``input_specs`` keys), as views: batch dims by
+    ``batch_pspecs``, caches as the layers hold them (the module
+    docstring).  The identity without a mesh."""
+    mesh = par.mesh
+    if mesh is None:
+        return batch
+    out = {}
+    for k, t in batch.items():
+        spec = _key_pspec(k, tuple(t.shape), mesh)
+        if not spec:
+            out[k] = t
             continue
-        if k in ("k_cache", "v_cache"):       # [L, B, W, KVH, dh]
-            bt = _batch_axes_for(s.shape[1], mesh)
-            kv = "model" if _div(s.shape[3], msize) else None
-            out[k] = (None, bt, None, kv, None)
-        elif k in ("enc_out", "enc_out_v"):   # [L, B, S, KVH, dh]
-            bt = _batch_axes_for(s.shape[1], mesh)
-            kv = "model" if _div(s.shape[3], msize) else None
-            out[k] = (None, bt, None, kv, None)
-        elif k == "ssm_state":                # [L, B, H, P, N]
-            bt = _batch_axes_for(s.shape[1], mesh)
-            hs = "model" if _div(s.shape[2], msize) else None
-            out[k] = (None, bt, hs, None, None)
-        elif k == "conv_state":               # [L, B, K-1, C]
-            bt = _batch_axes_for(s.shape[1], mesh)
-            out[k] = (None, bt, None, None)
-        else:                                 # [B, ...] tokens/labels/embeds
-            bt = _batch_axes_for(s.shape[0], mesh)
-            out[k] = (bt, *([None] * (len(s.shape) - 1)))
+        bdim = 1 if k in ("k_cache", "v_cache", "enc_out", "enc_out_v",
+                          "ssm_state", "conv_state") else 0
+        t = _block(t, bdim, spec[bdim], mesh)
+        if k in ("k_cache", "v_cache", "enc_out", "enc_out_v"):
+            _, _, k0, k1 = head_blocks(cfg, par)
+            t = t[:, :, :, k0:k1]
+        elif k == "ssm_state":
+            _, _, h0, h1 = ssm_blocks(cfg, par)
+            t = t[:, :, h0:h1]
+        elif k == "conv_state":
+            c0, c1, _, _ = ssm_blocks(cfg, par)
+            if (c0, c1) != (0, cfg.d_inner):
+                t = torch.cat([t[..., c0:c1], t[..., cfg.d_inner:]], -1)
+        out[k] = t
+    return out
+
+
+def gather_params(local: dict, defs: dict, par: ParallelCfg) -> dict:
+    """The whole of each leaf of ``local`` (a flat dict by
+    ``named_parameters`` name: parameters, gradients or moments), on every
+    rank: each rank's block is put in place in zeros and summed over the
+    mesh axes the leaf splits on (all-reduces only; a check, not a step)."""
+    rules, mesh = par.effective_rules(), par.mesh
+    out = {}
+
+    def walk(d, name):
+        if not isinstance(d, ParamDef):
+            for k in sorted(d):
+                walk(d[k], f"{name}.{k}" if name else k)
+            return
+        t = local[name]
+        axes = [a for ax in rules.spec(d.logical) if ax is not None
+                for a in (ax if isinstance(ax, tuple) else (ax,))]
+        if mesh is None or not axes:
+            out[name] = t
+            return
+        full = t.new_zeros(d.shape)
+        full[local_slices(d, rules, mesh)] = t
+        out[name] = sum_no_grad(full, par, tuple(axes))
+
+    walk(defs, "")
     return out

@@ -13,8 +13,17 @@ reference's ``input_specs``: ``tokens`` [B, S] for prefill, with
 ``frame_embeds`` [B, S_enc, D] feeding the encoder of an encdec model;
 the same and ``labels`` [B, S] for train; ``token`` [B, 1], ``pos``
 (scalar or per-lane [B]) and the stacked caches for decode.
+
+On a mesh (``par.mesh``) a Model holds its rank's blocks of the tree
+(``params.shard_params``) and is given its rank's block of each batch
+(``launch.sharding.batch_shard``).  ``loss`` then returns the rank's share
+of the global loss and its blocks' gradients (``train.loop`` sums both
+over the data ranks), ``prefill`` and ``decode`` the logits of the rank's
+batch rows over the whole vocabulary and the rank's caches.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -23,10 +32,10 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import families
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (cast, chunked_ce_loss, embed_apply,
-                                       embed_defs, logits_apply, matmul_f32,
-                                       norm_apply, norm_defs, sinusoidal_pos,
-                                       unembed_defs)
-from repro_torch.models.params import init_params
+                                       embed_defs, gather_vocab, logits_apply,
+                                       matmul_f32, norm_apply, norm_defs,
+                                       sinusoidal_pos, unembed_defs)
+from repro_torch.models.params import init_params, leaf_block
 from repro_torch.models.parallel import ParallelCfg
 
 
@@ -44,17 +53,21 @@ def model_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor,
+            par: ParallelCfg) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return matmul_f32(h, cast(params["embed"]["table"]).T)
-    return logits_apply(params["unembed"], h)
+        out = matmul_f32(h, cast(params["embed"]["table"]).T)
+    else:
+        out = logits_apply(params["unembed"], h)
+    return gather_vocab(out, par)
 
 
-def _embed_in(params, cfg: ArchConfig, batch: dict, decode: bool = False):
+def _embed_in(params, cfg: ArchConfig, batch: dict, par: ParallelCfg,
+              decode: bool = False):
     """Token (+ stub-frontend) embedding -> x [B, S, D]."""
     if decode:
-        return embed_apply(params["embed"], batch["token"])
-    x = embed_apply(params["embed"], batch["tokens"])
+        return embed_apply(params["embed"], batch["token"], par)
+    x = embed_apply(params["embed"], batch["tokens"], par)
     if cfg.frontend == "vision_stub":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], 1)
     if cfg.pos == "sinusoidal":
@@ -94,8 +107,11 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg
             ) -> torch.Tensor:
     """The train forward: mean next-token cross-entropy over the labelled
     text positions (``labels`` -1 are ignored), plus the MoE routers'
-    load-balancing term ``router_aux_weight * aux / n_layers``."""
-    x = _embed_in(params, cfg, batch)
+    load-balancing term ``router_aux_weight * aux / n_layers``.  On a data
+    axis, this rank's share of it: the shares add up to the loss.  The
+    aux term comes from the replicated router, so every model rank holds
+    it once."""
+    x = _embed_in(params, cfg, batch, par)
     enc = None
     if cfg.n_encoder_layers:
         enc = _run_encoder(params, cfg, par, batch["frame_embeds"], "train")
@@ -107,7 +123,8 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg
         x = x[:, batch["patch_embeds"].shape[1]:]
     unemb = ({"w": params["embed"]["table"].T} if cfg.tie_embeddings
              else params["unembed"])
-    loss = chunked_ce_loss(unemb, x, batch["labels"], chunk=par.loss_chunk)
+    loss = chunked_ce_loss(unemb, x, batch["labels"], chunk=par.loss_chunk,
+                           par=par)
     if cfg.family == "moe":
         loss = loss + cfg.router_aux_weight * aux / cfg.n_layers
     return loss
@@ -132,7 +149,7 @@ def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     model's include the encoder output's cross K/V (``enc_out``,
     ``enc_out_v``).
     """
-    x = _embed_in(params, cfg, batch)
+    x = _embed_in(params, cfg, batch, par)
     enc = None
     if cfg.n_encoder_layers:
         enc = _run_encoder(params, cfg, par, batch["frame_embeds"])
@@ -140,14 +157,14 @@ def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
         params["blocks"], x, cfg, par, mode="prefill", n_layers=cfg.n_layers,
         enc=enc)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return _logits(params, cfg, x[:, -1]), _caches_out(new_caches)
+    return _logits(params, cfg, x[:, -1], par), _caches_out(new_caches)
 
 
 def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     """One decode step. batch: token [B,1], pos (scalar or [B]), + caches
     [L, ...].  Returns (logits [B, V], new_caches dict); the input caches
     are left as they were."""
-    x = _embed_in(params, cfg, batch, decode=True)
+    x = _embed_in(params, cfg, batch, par, decode=True)
     if cfg.pos == "sinusoidal":
         pe = _decode_sinusoid(batch["pos"], x.shape[0], cfg.d_model,
                               x.device)
@@ -163,7 +180,23 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
         params["blocks"], x, cfg, par, mode="decode", n_layers=cfg.n_layers,
         pos=batch["pos"], caches=caches)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return _logits(params, cfg, x[:, 0]), _caches_out(new_caches)
+    return _logits(params, cfg, x[:, 0], par), _caches_out(new_caches)
+
+
+def _model_sharded(defs: dict, par: ParallelCfg,
+                   prefix: str = "") -> frozenset:
+    """The ``named_parameters`` names of the leaves split over ``model``."""
+    if par.model_axis_size == 1:
+        return frozenset()
+    rules = par.effective_rules()
+    out = set()
+    for k, d in defs.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(d, dict):
+            out |= _model_sharded(d, par, name)
+        elif "model" in rules.spec(d.logical):
+            out.add(name)
+    return frozenset(out)
 
 
 class _Tree(nn.Module):
@@ -196,6 +229,7 @@ class Model(_Tree):
                  par: ParallelCfg = ParallelCfg()):
         super().__init__(params)
         self.cfg, self.par = cfg, par
+        self.sharded = _model_sharded(model_defs(cfg), par)
 
     @property
     def device(self) -> torch.device:
@@ -232,8 +266,14 @@ class Model(_Tree):
 def build_model(cfg: ArchConfig, device: str | torch.device = DEFAULT_DEVICE,
                 seed: int = 0, par: ParallelCfg = ParallelCfg()) -> Model:
     """A :class:`Model` of ``cfg`` with random weights drawn on ``device``
-    from a ``torch.Generator`` seeded with ``seed``."""
+    from a ``torch.Generator`` seeded with ``seed``.  On a mesh every rank
+    draws the same whole tree, leaf by leaf, and keeps its blocks."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return Model(cfg, init_params(gen, model_defs(cfg)), par)
+    block = None
+    if par.mesh is not None:
+        rules, mesh = par.effective_rules(), par.mesh
+        block = functools.partial(leaf_block, rules=rules, mesh=mesh,
+                                  device=dev)
+    return Model(cfg, init_params(gen, model_defs(cfg), block=block), par)

@@ -20,6 +20,15 @@ paths:
   with a per-lane position; and ``cross_cached``, one token against the
   stored encoder K/V.  Plain torch on both devices, as in the reference,
   where they run outside any Pallas kernel.
+
+On a mesh whose rules shard ``heads`` over ``model`` each rank projects
+its block of q heads and the kv heads they read (:func:`head_blocks`),
+runs the attention of those heads only, through the same kernel entries,
+and the output projection is row-parallel (``layers.row_parallel``).
+Replicated weights that the local heads read (the kv projections when
+only q heads shard, the qk norms) take their gradient's sum over the
+model ranks (``copy_to_model``).  When ``heads`` is replicated (25 heads
+on an even axis) the sub-layer runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,9 +38,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_rope, cast
+from repro_torch.models.layers import apply_rope, cast, row_parallel
 from repro_torch.models.params import ParamDef
-from repro_torch.models.parallel import ParallelCfg, batch_spec, constrain
+from repro_torch.models.parallel import (ParallelCfg, batch_spec, constrain,
+                                         copy_to_model)
 
 NEG_INF = -1e30
 
@@ -58,6 +68,30 @@ def attn_defs(cfg: ArchConfig, cross: bool = False) -> dict:
         defs["q_norm"] = ParamDef((dh,), ("head",), init="ones")
         defs["k_norm"] = ParamDef((dh,), ("head",), init="ones")
     return defs
+
+
+def head_blocks(cfg: ArchConfig, par: ParallelCfg
+                ) -> tuple[int, int, int, int]:
+    """``(q0, q1, k0, k1)``: the q heads this rank attends over and the kv
+    heads they read.  Without head sharding, all of them.  With q and kv
+    heads sharded, the rank's blocks of each.  With only q heads sharded
+    (kv heads do not divide the axis: the Megatron GQA rule), the kv heads
+    under GQA of the rank's q block, which must be a whole number of
+    groups or lie in one group."""
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    n, m = par.model_axis_size, par.model_index
+    if not par.tp_sharded("heads"):
+        return 0, H, 0, KVH
+    Hl = H // n
+    if par.tp_sharded("kv_heads"):
+        Kl = KVH // n
+        return m * Hl, (m + 1) * Hl, m * Kl, (m + 1) * Kl
+    G = H // KVH
+    if Hl % G and G % Hl:
+        raise ValueError(f"{Hl} q heads a rank do not map onto whole kv "
+                         f"groups of {G}")
+    q0 = m * Hl
+    return q0, q0 + Hl, q0 // G, (q0 + Hl - 1) // G + 1
 
 
 def _head_rms(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -263,7 +297,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         raise NotImplementedError(
             f"attn_apply: q_offset={q_offset}; query row 0 sits at key 0, "
             "as the reference's _embed_in always sets it")
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q0, q1, k0, k1 = head_blocks(cfg, par)
+    tp = q1 - q0 != cfg.n_heads
+    if tp:
+        p = _local_weights(p, cfg, par, k0, k1)
+        x = copy_to_model(x, par)
+        kv_x = None if kv_x is None else copy_to_model(kv_x, par)
+    H, KVH, dh = q1 - q0, k1 - k0, cfg.head_dim
     G = H // KVH
     B, S, _ = x.shape
     cached = mode == "cross_cached"
@@ -331,5 +371,27 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
 
     out = constrain(out.reshape(B, S, H, dh), par, hspec)
     wo = cast(p["wo"])
-    y = out.reshape(B, S, H * dh) @ wo.reshape(H * dh, -1)
+    if tp:
+        y = row_parallel(out.reshape(B, S, H * dh), wo.reshape(H * dh, -1),
+                         par)
+    else:
+        y = out.reshape(B, S, H * dh) @ wo.reshape(H * dh, -1)
     return y, new_cache
+
+
+def _local_weights(p: dict, cfg: ArchConfig, par: ParallelCfg, k0: int,
+                   k1: int) -> dict:
+    """The weights the rank's heads read: the q-head weights are its
+    blocks already; a replicated kv projection (only q heads shard) is
+    sliced to kv heads ``k0:k1``; replicated weights read by the local
+    heads alone take their gradient's sum over the model ranks."""
+    out = dict(p)
+    if not par.tp_sharded("kv_heads"):
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                w = copy_to_model(p[name], par)
+                out[name] = w[:, k0:k1] if name[0] == "w" else w[k0:k1]
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = copy_to_model(p[name], par)
+    return out

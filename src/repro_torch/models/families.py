@@ -9,6 +9,10 @@ paths:
                 (outputs mean-combined, Hymba-style) -> mlp
   encdec      : self-attn -> cross-attn -> mlp   (whisper decoder);
                 encoder blocks are non-causal attn -> mlp.
+On a mesh each sub-layer holds its rank's blocks and sums over ``model``
+where it must (``parallel``); a hybrid block's attention branch runs whole
+on every rank when its heads are replicated, and meets the SSM branch's
+summed output.
 Parameters are stacked with a leading layer axis, as in the reference;
 :func:`stack_apply` is a Python loop over it (the reference's
 ``scan_layers=False`` path), each layer under the remat policy in train
@@ -109,7 +113,7 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     if cfg.family == "moe":
         y, aux = moe_mod.moe_apply(p["moe"], h, cfg, par)
     elif cfg.d_ff:
-        y = mlp_apply(p["mlp"], h, cfg.act)
+        y = mlp_apply(p["mlp"], h, cfg.act, par)
     else:
         y = torch.zeros_like(x)
     return x + y, new_cache, aux

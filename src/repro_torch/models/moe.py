@@ -7,12 +7,17 @@ order, and slots past capacity are dropped ("dropping" MoE).  The experts'
 FFNs run on the buffer and the kept slots are scattered back to token
 order, weighted by the renormalised router probabilities.
 
-The reference's expert-parallel path (``_moe_ep``: a shard_map over the
-mesh's ``model`` axis with one ``psum``) has no meaning on one card and is
-not ported; :func:`moe_apply` is the reference's single-device path
-(``par.mesh is None``: every expert, ``e_first = 0``).  The expert
-products stay ``torch.matmul``, as the reference leaves them to XLA
-outside any Pallas kernel.
+On a mesh whose rules shard ``expert`` over ``model``, :func:`moe_apply`
+takes the reference's expert-parallel path (``_moe_ep``): the router is
+replicated, each rank holds ``E / model`` experts from ``e_first = m *
+E / model`` and every token of its data shard, dispatches the slots
+routed to its experts at the capacity of *one data shard's* tokens (as
+the reference's ``n_shard``), and the partial outputs are summed over
+``model``.  Otherwise it is the reference's single-device path (every
+expert, ``e_first = 0``), whose slot ranks and capacity are over the
+global batch: on a data axis each rank offsets its ranks by the slots of
+the data ranks before it.  The expert products stay ``torch.matmul``, as
+the reference leaves them to XLA outside any Pallas kernel.
 
 ``moe_ref`` is the dense oracle (every expert on every token); with a
 capacity factor large enough to drop nothing, :func:`moe_apply` matches it.
@@ -24,10 +29,11 @@ import math
 import torch
 
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import activation, cast, matmul_f32
+from repro_torch.models.layers import (activation, cast, matmul_f32,
+                                       row_parallel)
 from repro_torch.models.params import ParamDef
-from repro_torch.models.parallel import ParallelCfg
-
+from repro_torch.models.parallel import (ParallelCfg, copy_to_model,
+                                         reduce_from_model, sum_no_grad)
 
 def moe_defs(cfg: ArchConfig) -> dict:
     E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -94,7 +100,8 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
         0, idx, torch.ones_like(idx))
 
 
-def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int):
+def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int,
+           offset: torch.Tensor | None = None):
     """Each flat (token, expert) slot's token, buffer row and keep flag.
 
     Slots are token-major (``ids.reshape(-1)``); a slot's rank is the
@@ -103,6 +110,8 @@ def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int):
     reference counts with a cumulative sum over a one-hot ``[N*k, E+1]``;
     here the rank is the slot's place in its expert's group of a stable
     sort by expert (the same integers, without the ``[N*k, E+1]`` scan).
+    ``offset`` [e_local] adds to each expert's ranks the slots that
+    earlier tokens held elsewhere (the data ranks before this one).
     Returns ``(tok, dest, keep)``, each ``[N*k]``; dropped slots point at
     the extra row ``e_local * capacity``.
     """
@@ -118,12 +127,16 @@ def _slots(ids: torch.Tensor, e_first: int, e_local: int, capacity: int):
     rank = torch.empty_like(le)
     rank[order] = torch.arange(le.numel(), device=dev) - first[le[order]]
     keep = in_range & (rank < capacity)
+    if offset is not None:
+        keep &= rank + torch.cat([offset, offset.new_zeros(1)])[le] \
+            < capacity
     dest = torch.where(keep, le * capacity + rank, e_local * capacity)
     return tok, dest, keep
 
 
 def _dispatch_compute(x2d, ids, wgt, w_in, w_out, *, e_first: int,
-                      e_local: int, capacity: int, act: str) -> torch.Tensor:
+                      e_local: int, capacity: int, act: str,
+                      offset: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter the slots routed to experts [e_first, e_first+e_local) into
     a capacity buffer, run the FFNs, scatter back.  Returns [N, D].
 
@@ -138,7 +151,7 @@ def _dispatch_compute(x2d, ids, wgt, w_in, w_out, *, e_first: int,
     """
     N, D = x2d.shape
     k = ids.shape[1]
-    tok, dest, keep = _slots(ids, e_first, e_local, capacity)
+    tok, dest, keep = _slots(ids, e_first, e_local, capacity, offset)
     buf = torch.zeros((e_local * capacity + 1, D), dtype=x2d.dtype,
                       device=x2d.device)
     buf[dest] = x2d[tok]
@@ -154,21 +167,58 @@ def _dispatch_compute(x2d, ids, wgt, w_in, w_out, *, e_first: int,
     return y
 
 
-def aux_loss(probs: torch.Tensor, ids: torch.Tensor, n_experts: int
-             ) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * <f_e, p_e>."""
+def aux_loss(probs: torch.Tensor, ids: torch.Tensor, n_experts: int,
+             par: ParallelCfg | None = None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * <f_e, p_e>, over the global
+    batch.  On a data axis (every rank holding as many tokens) the counts
+    are summed over the data ranks and each rank returns its share: its
+    tokens' part of ``p_e``."""
     pe = probs.reshape(-1, n_experts).mean(0)
     fe = _counts(ids.reshape(-1).long(), n_experts).float()
+    if par is not None and par.data_size > 1:
+        pe = pe / par.data_size
+        fe = sum_no_grad(fe, par, par.batch_axes)
     fe = fe / torch.clamp_min(fe.sum(), 1.0)
     return n_experts * torch.sum(pe * fe)
 
 
-def _shared(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The shared experts' dense FFN on every token."""
+def _shared(p: dict, x: torch.Tensor, act: str,
+            par: ParallelCfg | None = None) -> torch.Tensor:
+    """The shared experts' dense FFN on every token (column- then
+    row-parallel where the rules shard ``mlp``)."""
+    tp = par is not None and par.tp_sharded("mlp")
+    if tp:
+        x = copy_to_model(x, par)
     w_in = cast(p["shared_in"])
     h = _mm(x, w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
     h = activation(h, act).to(x.dtype)
+    if tp:
+        return row_parallel(h, cast(p["shared_out"]), par)
     return _mm(h, cast(p["shared_out"]))
+
+
+def ep_plan(n_tokens: int, cfg: ArchConfig, par: ParallelCfg
+            ) -> tuple[int, int, int]:
+    """``(e_first, e_local, capacity)`` of this rank's dispatch of
+    ``n_tokens`` local tokens: its block of experts, at the capacity of
+    its data shard's tokens (expert parallelism), or every expert at the
+    capacity of the global batch."""
+    E, k, cf = cfg.n_experts, cfg.experts_per_token, cfg.capacity_factor
+    if par.tp_sharded("expert"):
+        e_local = E // par.model_axis_size
+        return (par.model_index * e_local, e_local,
+                _capacity(n_tokens, k, E, cf))
+    return 0, E, _capacity(n_tokens * par.data_size, k, E, cf)
+
+
+def _data_offset(ids: torch.Tensor, E: int, par: ParallelCfg):
+    """Each expert's slots on the data ranks before this one (None when
+    there is one data rank)."""
+    if par.data_size == 1:
+        return None
+    rows = ids.new_zeros((par.data_size, E), dtype=torch.int64)
+    rows[par.data_index] = _counts(ids.reshape(-1).long(), E)
+    return sum_no_grad(rows, par, par.batch_axes)[:par.data_index].sum(0)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
@@ -178,13 +228,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
     E, k = cfg.n_experts, cfg.experts_per_token
     x2d = x.reshape(-1, D)
     ids, wgt, probs = _route(x2d, p["router"], k)
-    aux = aux_loss(probs, ids, E)
-    cap = _capacity(x2d.shape[0], k, E, cfg.capacity_factor)
-    y = _dispatch_compute(x2d, ids, wgt, cast(p["w_in"]), cast(p["w_out"]),
-                          e_first=0, e_local=E, capacity=cap, act=cfg.act)
+    aux = aux_loss(probs, ids, E, par)
+    e_first, e_local, cap = ep_plan(x2d.shape[0], cfg, par)
+    if e_local == E:
+        y = _dispatch_compute(x2d, ids, wgt, cast(p["w_in"]),
+                              cast(p["w_out"]), e_first=0, e_local=E,
+                              capacity=cap, act=cfg.act,
+                              offset=_data_offset(ids, E, par))
+    else:       # the reference's _moe_ep
+        y = _dispatch_compute(copy_to_model(x2d, par),
+                              ids, copy_to_model(wgt, par), cast(p["w_in"]),
+                              cast(p["w_out"]), e_first=e_first,
+                              e_local=e_local, capacity=cap, act=cfg.act)
+        y = reduce_from_model(y.float(), par).to(x2d.dtype)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
-        y = y + _shared(p, x, cfg.act)
+        y = y + _shared(p, x, cfg.act, par)
     return y, aux
 
 

@@ -12,10 +12,13 @@ of a mesh (``launch.dryrun``).  Consumers:
                        counterpart of ``jax.ShapeDtypeStruct`` (nothing is
                        allocated);
   * ``param_pspecs`` — a tuple of mesh axes per dimension, the counterpart
-                       of ``PartitionSpec``.
-
-``param_shardings`` (``NamedSharding`` over placed devices) has no
-counterpart: the port places no mesh.
+                       of ``PartitionSpec``;
+  * ``shard_params`` — one rank's blocks of a full tree, the counterpart of
+                       ``param_shardings`` (``jax.device_put`` of a tree
+                       under ``NamedSharding``s): each sharded dimension
+                       holds the contiguous block that ``NamedSharding``
+                       gives the rank's mesh device;
+  * ``param_local_shapes`` — the shapes of those blocks.
 """
 from __future__ import annotations
 
@@ -122,7 +125,8 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     return max(int(np.prod(shape[:-1])), 1)
 
 
-def init_params(generator: torch.Generator, tree, dtype_override=None):
+def init_params(generator: torch.Generator, tree, dtype_override=None,
+                block: Callable | None = None):
     """Materialize a ParamDef tree on ``generator``'s device.
 
     The initializers are the reference's (``normal``: 0.02 x N(0, 1) x
@@ -131,6 +135,10 @@ def init_params(generator: torch.Generator, tree, dtype_override=None):
     The numbers differ from ``jax.random``'s for the same seed: to compute
     what the reference computes, load its weights with
     :func:`repro_torch.models.convert.params_from_numpy`.
+
+    ``block(d, x)``, where given, is kept in place of each drawn leaf
+    ``x`` (a rank's block of it: :func:`shard_params`' blocks of the tree
+    drawn whole, holding one whole leaf at a time).
     """
     dev = generator.device
 
@@ -151,7 +159,7 @@ def init_params(generator: torch.Generator, tree, dtype_override=None):
 
     def walk(t):
         if isinstance(t, ParamDef):
-            return one(t)
+            return one(t) if block is None else block(t, one(t))
         return {k: walk(t[k]) for k in sorted(t)}
 
     return walk(tree)
@@ -195,3 +203,74 @@ def sharded_size_bytes(tree, rules: ShardingRules, mesh_shape: dict[str, int]
                 shards *= mesh_shape.get(a, 1)
         total += math.ceil(n / shards) * d.dtype.itemsize
     return total
+
+
+def _blocks(ax, mesh) -> tuple[int, int]:
+    """``(count, index)`` of the blocks a dimension mapped to mesh axes
+    ``ax`` splits into, and this rank's block (rank 0's on a mesh with no
+    coordinates, a :class:`~repro_torch.launch.mesh.MeshShape`)."""
+    if ax is None:
+        return 1, 0
+    n, i = 1, 0
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        size = mesh.shape.get(a, 1)
+        coord = mesh.coord(a) if hasattr(mesh, "coord") else 0
+        n, i = n * size, i * size + coord
+    return n, i
+
+
+def local_shape(d: ParamDef, rules: ShardingRules, mesh) -> tuple[int, ...]:
+    """The shape of one rank's block of leaf ``d``; a sharded dimension
+    must split evenly."""
+    out = []
+    for size, ax in zip(d.shape, rules.spec(d.logical)):
+        n, _ = _blocks(ax, mesh)
+        if size % n:
+            raise ValueError(f"a dimension of {size} ({d.logical}) does not "
+                             f"split into {n} blocks over {ax}")
+        out.append(size // n)
+    return tuple(out)
+
+
+def param_local_shapes(tree, rules: ShardingRules, mesh):
+    """Each leaf's block shape on ``mesh`` under ``rules``."""
+    return tree_map_defs(lambda d: local_shape(d, rules, mesh), tree)
+
+
+def local_slices(d: ParamDef, rules: ShardingRules, mesh) -> tuple:
+    """The slices that cut this rank's block out of a full leaf."""
+    out = []
+    for size, ax in zip(d.shape, rules.spec(d.logical)):
+        n, i = _blocks(ax, mesh)
+        out.append(slice(i * (size // n), (i + 1) * (size // n)))
+    return tuple(out)
+
+
+def shard_params(params, defs, rules: ShardingRules, mesh,
+                 device: str | torch.device | None = None):
+    """This rank's blocks of the full tree ``params`` (tensors or numpy
+    arrays, e.g. ``np.load(..., mmap_mode="r")``, of which only the block
+    is read), each a new tensor in its ParamDef's dtype on ``device``
+    (the mesh's device by default)."""
+    device = mesh.device if device is None else device
+
+    def walk(d, t, path):
+        if isinstance(d, ParamDef):
+            if tuple(t.shape) != d.shape:
+                raise ValueError(f"{path}: shape {tuple(t.shape)}, expected "
+                                 f"{d.shape}")
+            return leaf_block(d, t, rules, mesh, device)
+        return {k: walk(d[k], t[k], f"{path}.{k}".lstrip("."))
+                for k in sorted(d)}
+
+    return walk(defs, params, "")
+
+
+def leaf_block(d: ParamDef, t, rules: ShardingRules, mesh,
+               device: str | torch.device) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` (a tensor or a numpy
+    array), as a new tensor in ``d``'s dtype on ``device``."""
+    block = t[local_slices(d, rules, mesh)]
+    if not isinstance(block, torch.Tensor):
+        block = torch.from_numpy(np.ascontiguousarray(block))
+    return block.to(device=device, dtype=d.dtype, copy=True)

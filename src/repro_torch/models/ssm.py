@@ -13,6 +13,19 @@ reference's is XLA's autodiff of it.  :func:`ssd_ref` is the sequential oracle. 
 depthwise conv is K shifted multiplies, and the decode conv keeps the
 reference's ordered shift-sum, so the prefill-to-decode conv handoff
 rounds identically.
+
+On a mesh whose rules shard ``ssm_inner`` and ``ssm_heads`` over
+``model`` (:func:`ssm_blocks`), each rank holds its block of ``wz``,
+``wx``, ``conv_x``, ``norm``, ``out`` (inner channels) and of ``wdt``,
+``A_log``, ``Dskip``, ``dt_bias`` (heads), runs ``ssd_scan`` on its heads
+and sums the row-parallel ``out`` projection over ``model``.  The B/C
+stream (``wbc``, ``conv_bc``) is replicated: every rank computes it
+whole, and its gradient, which each rank's heads feed a part of, is
+summed over the model ranks (``copy_to_model``).  The gated norm takes
+the mean of ``g*g`` over the whole ``d_inner``, so its sum of squares is
+summed over the model ranks before the ``rsqrt`` (a per-rank group norm
+would be another model).  A decode state holds the rank's heads; its
+conv state the rank's inner channels and the B/C channels.
 """
 from __future__ import annotations
 
@@ -21,9 +34,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import cast, silu
+from repro_torch.models.layers import cast, row_parallel, silu
 from repro_torch.models.params import ParamDef
-from repro_torch.models.parallel import ParallelCfg, batch_spec, constrain
+from repro_torch.models.parallel import (ParallelCfg, batch_spec, constrain,
+                                         copy_to_model, sum_over_model)
 
 
 def ssm_defs(cfg: ArchConfig) -> dict:
@@ -152,10 +166,33 @@ def ssd_ref(x, dt, A, Bm, Cm, h0=None):
     return torch.stack(ys, 1).to(x.dtype), h
 
 
+def ssm_blocks(cfg: ArchConfig, par: ParallelCfg
+               ) -> tuple[int, int, int, int]:
+    """``(c0, c1, h0, h1)``: the inner channels and the SSM heads this
+    rank holds (all of them unless the rules shard them)."""
+    di, H = cfg.d_inner, cfg.ssm_heads
+    inner, heads = par.tp_sharded("ssm_inner"), par.tp_sharded("ssm_heads")
+    if inner != heads:
+        raise ValueError("ssm_inner and ssm_heads must shard together: a "
+                         "rank's inner channels are its heads' channels")
+    if not inner:
+        return 0, di, 0, H
+    n, m = par.model_axis_size, par.model_index
+    return m * di // n, (m + 1) * di // n, m * H // n, (m + 1) * H // n
+
+
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float) -> torch.Tensor:
+                eps: float, par: ParallelCfg | None = None,
+                width: int | None = None) -> torch.Tensor:
+    """RMS norm of ``y * silu(z)`` over the inner width; on a mesh ``y``
+    holds ``width / model`` of its channels and the sum of squares is
+    summed over the model ranks."""
     g = y.float() * silu(z.float())
-    g = g * torch.rsqrt(torch.mean(g * g, -1, keepdim=True) + eps)
+    if width is None or width == g.shape[-1]:
+        ms = torch.mean(g * g, -1, keepdim=True)
+    else:
+        ms = sum_over_model(torch.sum(g * g, -1, keepdim=True), par) / width
+    g = g * torch.rsqrt(ms + eps)
     return (g * scale.float()).to(y.dtype)
 
 
@@ -169,12 +206,16 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"ssm_apply: unknown mode {mode!r}")
     Bsz, S, D = x.shape
-    di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    c0, c1, h0, h1 = ssm_blocks(cfg, par)
+    tp = c1 - c0 != cfg.d_inner
+    di, G, N, H = c1 - c0, cfg.ssm_groups, cfg.ssm_state, h1 - h0
     Pd, K = cfg.ssm_headdim, cfg.ssm_conv
 
+    bc = x @ cast(p["wbc"])
+    if tp:
+        x = copy_to_model(x, par)
     z = x @ cast(p["wz"])
     xin = x @ cast(p["wx"])
-    bc = x @ cast(p["wbc"])
     dt = x @ cast(p["wdt"])
     ispec = batch_spec(par, None, "model")
     z, xin = constrain(z, par, ispec), constrain(xin, par, ispec)
@@ -197,6 +238,8 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
             new_conv = torch.cat([xin, bc], -1)[:, S - K + 1:]
         xin = silu(_causal_conv(xin, p["conv_x"], p["conv_bias_x"]))
         bc = silu(_causal_conv(bc, p["conv_bc"], p["conv_bias_bc"]))
+    if tp:
+        bc = copy_to_model(bc, par)
 
     Bm = bc[..., :G * N].reshape(Bsz, S, G, N)
     Cm = bc[..., G * N:].reshape(Bsz, S, G, N)
@@ -222,5 +265,8 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
 
     y = y + xh * cast(p["Dskip"])[:, None]
     y = y.reshape(Bsz, S, di)
+    if tp:
+        y = _gated_norm(y, z, p["norm"], cfg.norm_eps, par, cfg.d_inner)
+        return row_parallel(y, cast(p["out"]), par), new_state
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
     return y @ cast(p["out"]), new_state

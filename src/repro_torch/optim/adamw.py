@@ -7,6 +7,12 @@ adamw_update(params, grads, state, cfg)``.  ``torch.optim.AdamW`` is not
 a substitute: this update clips by the global norm inside the step,
 divides as ``(m / bc1) / (sqrt(v / bc2) + eps)``, follows its own
 schedule and decays only tensors with ``ndim >= 2``.
+
+On a mesh each rank holds its blocks of the parameters, gradients and
+moments, and the update is elementwise on them; only the clipping norm
+spans ranks: :func:`global_norm` sums the squares of the model-sharded
+leaves over ``model`` and counts each replicated leaf once, so it is the
+norm of the whole gradient, as the reference's.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.models.parallel import ParallelCfg, sum_no_grad
 
 
 class AdamWConfig(NamedTuple):
@@ -56,17 +64,31 @@ def adamw_init(params: dict, cfg: AdamWConfig = AdamWConfig()) -> OptState:
                     torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+def _sq(xs) -> torch.Tensor:
+    return sum(torch.sum(torch.square(x.to(torch.float32))) for x in xs)
+
+
+def global_norm(tree: dict, par: ParallelCfg | None = None,
+                sharded: frozenset = frozenset()) -> torch.Tensor:
+    """The norm of all of ``tree``; on a mesh ``sharded`` names the leaves
+    split over ``model``, whose squares are summed over the model ranks."""
+    if par is None or not sharded:
+        return torch.sqrt(_sq(tree.values()))
+    rep = _sq(x for k, x in tree.items() if k not in sharded)
+    part = _sq(x for k, x in tree.items() if k in sharded)
+    return torch.sqrt(rep + sum_no_grad(part, par))
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: OptState,
-                 cfg: AdamWConfig) -> tuple[dict, OptState, dict]:
-    """One step; returns new tensors (the inputs are not changed)."""
+                 cfg: AdamWConfig, par: ParallelCfg | None = None,
+                 sharded: frozenset = frozenset()
+                 ) -> tuple[dict, OptState, dict]:
+    """One step; returns new tensors (the inputs are not changed).
+    ``par`` and ``sharded``: the mesh and the model-sharded leaves, for
+    the clipping norm (:func:`global_norm`)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, par, sharded)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     lr = cosine_lr(cfg, step)

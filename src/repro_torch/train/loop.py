@@ -19,10 +19,20 @@ checkpoint holds it as nested dicts in the reference's layout
 (``params/blocks/attn/wq``), so either package restores the ``params``
 subtree the other wrote.  The compression residual is kept, and saved,
 only when ``compress_grads`` is on (the reference always carries it).
+
+On a mesh (``model.par.mesh``) the model holds its rank's blocks: the
+microbatches' local gradients are accumulated, then summed over the data
+ranks (``parallel.sum_over_data``: each rank's loss is its share of the
+global loss) before compression, where GSPMD's gradient reduce sits in
+the reference; AdamW updates the local blocks, clipping by the norm of
+the whole gradient.  The Trainer cuts its rank's block of every
+pipeline batch (``launch.sharding.batch_shard``), and each rank
+checkpoints its own shard as ``proc_{rank}.npz``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable
 
@@ -30,9 +40,11 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, SyntheticPipeline
+from repro_torch.launch.sharding import batch_shard
 from repro_torch.models.api import Model, model_defs
 from repro_torch.models.common import ShapeCfg
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, leaf_block
+from repro_torch.models.parallel import sum_no_grad, sum_over_data
 from repro_torch.optim import (AdamWConfig, CompressState, OptState,
                                adamw_init, adamw_update, compress_init,
                                compressed_grads)
@@ -65,6 +77,7 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     is None unless ``tc.compress_grads``; ``metrics`` holds the tensors
     ``loss``, ``grad_norm``, ``lr`` (and ``compress_residual_sq``)."""
     params = dict(model.named_parameters())
+    par = model.par
 
     def grads_of(batch):
         if tc.microbatches <= 1:
@@ -84,11 +97,15 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     def step(opt_state: OptState, cstate: CompressState | None,
              batch: dict):
         loss, grads = grads_of(batch)
+        if par.mesh is not None:
+            loss = sum_no_grad(loss, par, par.batch_axes)
+            grads = sum_over_data(grads, par)
         metrics = {"loss": loss}
         if tc.compress_grads:
             grads, cstate, cm = compressed_grads(grads, cstate)
             metrics.update(cm)
-        new, opt_state, om = adamw_update(params, grads, opt_state, tc.opt)
+        new, opt_state, om = adamw_update(params, grads, opt_state, tc.opt,
+                                          par, model.sharded)
         del grads
         with torch.no_grad():
             for k, p in params.items():
@@ -135,7 +152,13 @@ class Trainer:
         self.pipeline = SyntheticPipeline(self.cfg, shape, data_cfg,
                                           scale_batch=scale_batch,
                                           device=model.device)
-        self.ckpt = CheckpointManager(ckpt_dir, keep) if ckpt_dir else None
+        mesh = model.par.mesh
+        self.ckpt = CheckpointManager(
+            ckpt_dir, keep,
+            process_index=mesh.rank if mesh is not None else 0,
+            mesh=mesh.shape if mesh is not None else None,
+            processes=mesh.size if mesh is not None else 1) \
+            if ckpt_dir else None
         self.fault_hook = fault_hook
         self.step_fn = make_train_step(model, tc)
         self.state: dict = {}
@@ -151,7 +174,13 @@ class Trainer:
         if seed is not None:
             gen = torch.Generator(device=self.model.device)
             gen.manual_seed(seed)
-            fresh = _unnest(init_params(gen, model_defs(self.cfg)))
+            par, block = self.model.par, None
+            if par.mesh is not None:
+                block = functools.partial(
+                    leaf_block, rules=par.effective_rules(), mesh=par.mesh,
+                    device=self.model.device)
+            fresh = _unnest(init_params(gen, model_defs(self.cfg),
+                                        block=block))
             with torch.no_grad():
                 for k, p in params.items():
                     p.copy_(fresh[k])
@@ -203,7 +232,8 @@ class Trainer:
         for i in range(start, steps):
             if self.fault_hook is not None:
                 self.fault_hook(i)      # may raise to simulate preemption
-            batch = self.pipeline.next_batch()
+            batch = batch_shard(self.pipeline.next_batch(), self.cfg,
+                                self.model.par)
             t0 = time.perf_counter()
             self.state["opt"], self.state["cstate"], metrics = self.step_fn(
                 self.state["opt"], self.state["cstate"], batch)

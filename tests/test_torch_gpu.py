@@ -1043,3 +1043,88 @@ def test_probe_record_provenance(cuda, tmp_path):
     assert prov["device_kind"] == torch.cuda.get_device_name(0)
     assert prov["device_count"] == torch.cuda.device_count()
     assert prov["power_limit"].endswith("W")
+
+
+# ---------------------------------------------------------------------------
+# The model over a placed mesh: a 1 x 2 fleet of gloo ranks on the card.
+# ---------------------------------------------------------------------------
+
+MESH_PAYLOAD = r"""
+import json, sys
+import numpy as np
+import torch
+from repro_torch import configs, shard
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.launch.sharding import make_parallel
+from repro_torch.models.api import build_model
+
+shard.initialize_from_env(initialization_timeout=300)
+cfg = configs.get("hymba-1.5b").reduced()
+mesh = ProcessMesh.build(MeshShape.parse("data=1,model=2"))
+par = make_parallel(cfg, mesh, remat="none")
+model = build_model(cfg, "cpu", seed=1, par=par).to(mesh.device)
+toks = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, (1, 91))).to(mesh.device)
+reset_launches()
+logits, caches = model.prefill({"tokens": toks[:, :90]})
+torch.cuda.synchronize()
+launches = dict(LAUNCHES)
+dlogits, _ = model.decode({"token": toks[:, 90:],
+                           "pos": torch.tensor(90, device=mesh.device),
+                           **caches})
+loss, _ = model.loss({"tokens": toks[:, :64], "labels": toks[:, 1:65]})
+print(json.dumps({"device": str(mesh.device), "launches": launches,
+                  "prefill": logits.cpu().tolist(),
+                  "decode": dlogits.cpu().tolist(), "loss": float(loss)}))
+"""
+
+
+def test_reduced_hymba_on_a_1x2_fleet_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card, each holding half of reduced
+    hymba's heads (attention and SSM), MLP and vocabulary: the prefill,
+    one decode step and the loss against one process on the CPU (the
+    plain versions) at 3e-2, each rank launching both kernels once per
+    layer in the prefill."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(MESH_PAYLOAD)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                 REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                 REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r)))
+        for r in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    cfg = configs.get("hymba-1.5b").reduced()
+    cpu = build_model(cfg, "cpu", seed=1)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 91)))
+    lc, cc = cpu.prefill({"tokens": toks[:, :90]})
+    dc, _ = cpu.decode({"token": toks[:, 90:], "pos": torch.tensor(90),
+                        **cc})
+    loss, _ = cpu.loss({"tokens": toks[:, :64], "labels": toks[:, 1:65]})
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        assert r["launches"].get("flash_attention") == cfg.n_layers
+        assert r["launches"].get("ssd_scan") == cfg.n_layers
+        torch.testing.assert_close(torch.tensor(r["prefill"]), lc,
+                                   atol=3e-2, rtol=3e-2)
+        torch.testing.assert_close(torch.tensor(r["decode"]), dc,
+                                   atol=3e-2, rtol=3e-2)
+        assert abs(r["loss"] - float(loss)) <= 3e-2

@@ -107,6 +107,11 @@ def test_guard_sees_the_whole_port():
             port / "train" / "loop.py",
             port / "launch" / "mesh.py",
             port / "launch" / "sharding.py",
+            port / "models" / "parallel.py",
+            port / "models" / "params.py",
+            port / "models" / "layers.py",
+            port / "models" / "api.py",
+            port / "kernels" / "build.py",
             port / "launch" / "op_analysis.py",
             port / "kernels" / "cost.py",
             port / "launch" / "dryrun.py",
@@ -169,6 +174,21 @@ def test_build_model_without_device_wants_the_card():
         build_model(configs.get("hymba-1.5b").reduced())
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_numpy({}, configs.get("hymba-1.5b").reduced())
+
+
+def test_mesh_entries_without_device_want_the_card():
+    """A placed mesh's ranks run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import (MeshShape, ProcessMesh,
+                                         make_smoke_mesh)
+    for call in (make_smoke_mesh, lambda: ProcessMesh.build(MeshShape.card()),
+                 lambda: launch_train.main(["--arch", "hymba-1.5b",
+                                            "--reduced", "--steps", "1",
+                                            "--mesh", "data=1,model=1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_perf_entries_without_device_want_the_card(tmp_path):

@@ -454,8 +454,12 @@ def test_run_cell_records(tmp_path, monkeypatch):
                         "--tag", "t"]) == 0
     rec = json.loads((tmp_path / "qwen1.5-0.5b__decode_32k__pod16x16.json")
                      .read_text())
-    assert rec["status"] == "ok" and rec["fits"] is None
-    assert "not modelled" in rec["collective"]
+    # A mesh's record is rank 0's local step with its collectives counted.
+    assert rec["status"] == "ok" and rec["fits"] is True
+    assert "collective" not in rec and rec["collective_bytes"] > 0
+    assert rec["collective_bytes"] == sum(rec["coll_mix"].values())
+    assert rec["wire_bytes"] == pytest.approx(sum(
+        b * 2 * 15 / 16 for b in rec["coll_mix"].values()))
     assert rec["flops"] == rec["cost_total"]["flops"] / 256
     cfg = configs.get("qwen1.5-0.5b")
     rules = dryrun.effective_rules(cfg, MESHES[False])
@@ -476,7 +480,9 @@ def test_run_cell_records(tmp_path, monkeypatch):
         "pod1x1")
     assert set(picks) == {"worst_roofline", "paper_representative"}
     md = roofline.to_markdown(rows)
-    assert "not modelled" in md and "mamba2-370m" in md
+    assert "not modelled" not in md and "mamba2-370m" in md
+    row = next(r for r in rows if r["mesh"] == "pod16x16")
+    assert row["collective_modelled"] and row["collective_s"] > 0
 
 
 def test_overrides_take_only_keys_the_port_reads(capsys):
