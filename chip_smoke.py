@@ -223,7 +223,22 @@ non-zero exit code if it fails:
     5e-3; each bf16 run's distance to it, the mesh's within twice one
     card's plus 5e-3); each
     rank's walls, peak memory, launches and all-reduce calls, bytes and
-    seconds printed.
+    seconds printed;
+22. zero — ZeRO stages over ``data`` on gloo ranks sharing the card
+    (``--zero-worker``): (a) reduced qwen3-moe on ``data=2, model=2`` at
+    stages 0-3, one step each on the same weights and batch: the loss and
+    every gradient leaf (summed over data, put back together) at stages
+    1-3 bit for bit stage 0's, the parameters after the step within 1e-6
+    of stage 0's (each leaf's relative Frobenius distance:
+    ``global_norm`` sums in another order), each rank's parameter,
+    gradient and moment bytes and the step's traffic by axis and op
+    printed; (b) hymba-1.5b at full width cut to 8 layers over ``data=2``,
+    seq 1024 x 2 (one sequence a rank), remat full, at stages 0 and 3,
+    two steps each: the first step's loss at stage 3 bit for bit stage
+    0's, stage 3's state (parameters, gradients, moments) a rank under
+    0.6 of stage 0's, 16 launches of each model kernel a rank a step; the
+    peak memory, state bytes, a warm step's wall and its collective
+    seconds and bytes by op printed.
 
 Every kernel bound comes from the kernel module's own ``cost`` formula at
 the card's rates (``kernels.cost``).  A line gives each phase's seconds.
@@ -233,7 +248,8 @@ the main path's, the dry run's and the probe's; ``gate_quantile``'s the
 online path's and the probe's; ``flash_attention``'s the serve path's,
 the families', the train path's, the dry run's and the mesh ranks';
 ``ssd_scan``'s the serve path's, the train path's, the dry run's and the
-mesh ranks'), the card's name and power limit, and ``{"ok": true,
+mesh ranks'; both model kernels' also the ZeRO ranks'), the card's name
+and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -4247,6 +4263,281 @@ def mesh_path(dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# Phase 22: ZeRO stages 1-3 over data.  Gloo ranks sharing the one card
+# (this script spawned as --zero-worker), each holding its blocks of the
+# weights, gradients and moments at the stage, with models.parallel's
+# all-gathers and reduce-scatters beside the all-reduces.
+ZERO_STEP_MESH = "data=2,model=2"   # (a) reduced qwen3-moe, 4 ranks
+ZERO_STEP_STAGES = (0, 1, 2, 3)
+ZERO_STEP_RTOL = 1e-6               # (a) parameters after a step vs stage
+# 0's, each leaf's relative Frobenius distance (the update's scale follows
+# the clipping norm, whose squares each stage sums in its own order)
+ZERO_TRAIN_MESH = "data=2,model=1"  # (b) hymba-1.5b, full width
+ZERO_TRAIN_LAYERS = 8               # (b) of 32, for time
+ZERO_TRAIN_STAGES = (0, 3)          # stage 1 (its state between them)
+# left out for the script's time; (a) holds it bit for bit
+ZERO_TRAIN_SEQ = 1024
+ZERO_TRAIN_BATCH = 2                # one sequence a rank
+ZERO_TRAIN_STEPS = 2
+ZERO_HALF = 0.6                     # (b) stage 3's state / stage 0's, at most
+
+
+def zero_worker(mode: str, work: str, device: str) -> int:
+    """One rank of phase 22 (spawned by :func:`zero_path` with the
+    ``REPRO_*`` env): ``step`` (a) or ``train`` (b); its results as the
+    last line, rank 0's arrays under ``work``."""
+    sys.path.insert(0, SRC)
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, shard
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import (batch_shard, gather_params,
+                                             make_parallel)
+    from repro_torch.models import parallel
+    from repro_torch.models.api import build_model, model_defs
+    from repro_torch.models.common import materialize
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.loop import make_train_step
+
+    shard.initialize_from_env(initialization_timeout=MESH_TIMEOUT_S)
+    if device == "cpu":
+        torch.set_num_threads(2)
+    spec = ZERO_STEP_MESH if mode == "step" else ZERO_TRAIN_MESH
+    mesh = ProcessMesh.build(MeshShape.parse(spec), device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=8)
+    out = {"rank": mesh.rank, "device": str(dev), "stages": {}}
+    parallel.TIME_COLLECTIVES = True
+    if mode == "step":
+        cfg = configs.get("qwen3-moe-30b-a3b").reduced()
+        defs = model_defs(cfg)
+        tokens = torch.from_numpy(mesh_tokens(cfg, 0, (8, 64)))
+        labels = torch.cat([tokens[:, 1:], torch.full((8, 1), -1,
+                                                      dtype=torch.int32)], 1)
+        reset_launches()
+        for stage in ZERO_STEP_STAGES:
+            par = make_parallel(cfg, mesh, zero_stage=stage, remat="none")
+            model = build_model(cfg, "cpu", seed=0, par=par).to(dev)
+            batch = batch_shard({"tokens": tokens.to(dev),
+                                 "labels": labels.to(dev)}, cfg, par)
+            pl = model.placement
+            loss, grads = model.loss(batch)
+            r = {"loss": float(parallel.sum_no_grad(loss, par,
+                                                    par.batch_axes)),
+                 "param_bytes": nbytes(model.parameters()),
+                 "grad_bytes": nbytes(grads.values())}
+            summed = parallel.sum_over_data(grads, par, pl.data, pl.scatter)
+            summed = {k: parallel.all_gather(g, par, pl.scatter[k])
+                      if k in pl.scatter else g for k, g in summed.items()}
+            save = {"g." + k: g.float().cpu().numpy() for k, g in
+                    gather_params(summed, defs, par).items()}
+            del grads, summed
+            opt = adamw_init(dict(model.named_parameters()), opt_cfg, par,
+                             pl)
+            r["moment_bytes"] = nbytes([*opt.m.values(), *opt.v.values()])
+            parallel.reset_traffic()
+            sync()
+            t0 = time.perf_counter()
+            _, _, m = make_train_step(model, TrainConfig(opt=opt_cfg))(
+                opt, None, batch)
+            sync()
+            r.update(step_s=time.perf_counter() - t0,
+                     step_loss=float(m["loss"]),
+                     grad_norm=float(m["grad_norm"]),
+                     traffic=parallel.traffic_table(slice(0, 3)))
+            save.update({"s." + k: p.float().cpu().numpy() for k, p in
+                         gather_params(dict(model.named_parameters()), defs,
+                                       par).items()})
+            if mesh.rank == 0:
+                np.savez(os.path.join(work, f"zero_step_{stage}.npz"),
+                         **save)
+            out["stages"][stage] = r
+            del model, opt, m
+        out["launches"] = dict(LAUNCHES)
+    else:
+        cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                                  n_layers=ZERO_TRAIN_LAYERS)
+        whole = materialize(cfg, "train_4k", seq=ZERO_TRAIN_SEQ,
+                            batch=ZERO_TRAIN_BATCH, device=dev)
+        out["launches"] = {}
+        for stage in ZERO_TRAIN_STAGES:
+            free_card()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            par = make_parallel(cfg, mesh, zero_stage=stage, remat="full")
+            model = build_model(cfg, dev, seed=0, par=par)
+            batch = batch_shard(whole, cfg, par)
+            params = dict(model.named_parameters())
+            opt = adamw_init(params, opt_cfg, par, model.placement)
+            step = make_train_step(model, TrainConfig(opt=opt_cfg))
+            r = {"param_bytes": nbytes(params.values()),
+                 # the loss's gradient blocks: the parameters' shapes
+                 "grad_bytes": nbytes(params.values()),
+                 "moment_bytes": nbytes([*opt.m.values(), *opt.v.values()]),
+                 "steps": []}
+            for _ in range(ZERO_TRAIN_STEPS):
+                parallel.reset_traffic()
+                reset_launches()
+                sync()
+                t0 = time.perf_counter()
+                opt, _, m = step(opt, None, batch)
+                sync()
+                r["steps"].append({
+                    "wall_s": time.perf_counter() - t0,
+                    "loss": float(m["loss"]),
+                    "traffic": parallel.traffic_table(slice(0, 3)),
+                    "launches": dict(LAUNCHES)})
+                for k, n in LAUNCHES.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + n
+            r["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            out["stages"][stage] = r
+            del model, params, opt, step, m
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def zero_step(work: str) -> dict:
+    """(a) reduced qwen3-moe on ``data=2, model=2`` at stages 0-3: stages
+    1-3 against stage 0 on the same card fleet."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(4, ["--zero-worker", "step", work, "cuda"],
+                        MESH_TIMEOUT_S, "zero step")
+    wall = time.perf_counter() - t0
+    st = {s: ranks[0]["stages"][str(s)] for s in ZERO_STEP_STAGES}
+    check(all(r["stages"][k]["loss"] == ranks[0]["stages"][k]["loss"]
+              for r in ranks.values() for k in r["stages"]),
+          "zero step: the ranks' losses differ")
+    with np.load(os.path.join(work, "zero_step_0.npz")) as z:
+        base = {k: z[k] for k in z.files}
+    check(all(np.isfinite(v).all() for v in base.values()),
+          "zero step: stage 0's gradients or parameters not finite")
+    worst = {}
+    for s in ZERO_STEP_STAGES[1:]:
+        check(st[s]["loss"] == st[0]["loss"], f"zero step: stage {s}'s "
+              f"loss {st[s]['loss']!r} is not stage 0's {st[0]['loss']!r}")
+        with np.load(os.path.join(work, f"zero_step_{s}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        check(set(got) == set(base), f"zero step: stage {s}'s leaves differ")
+        bad = [k for k in base if k.startswith("g.")
+               and not np.array_equal(got[k], base[k])]
+        check(not bad, f"zero step: stage {s}'s gradients {bad[:4]} are not "
+              "stage 0's bit for bit")
+        rel = {k: float(np.linalg.norm(got[k] - base[k])
+                        / max(np.linalg.norm(base[k]), 1e-30))
+               for k in base if k.startswith("s.")}
+        worst[s] = max(rel.values())
+        check(worst[s] <= ZERO_STEP_RTOL, f"zero step: stage {s}'s "
+              f"parameters after the step are {worst[s]:.3g} from stage "
+              f"0's (> {ZERO_STEP_RTOL})")
+    table = {s: {"bytes by rank (params / grads / moments)": [
+        [r["stages"][str(s)][k] for k in ("param_bytes", "grad_bytes",
+                                          "moment_bytes")]
+        for r in ranks.values()],
+        "step s": [round(r["stages"][str(s)]["step_s"], 3)
+                   for r in ranks.values()],
+        "traffic [calls, bytes, s] rank 0": st[s]["traffic"]}
+        for s in ZERO_STEP_STAGES}
+    print(f"zero (a): reduced qwen3-moe over {ZERO_STEP_MESH} (4 gloo ranks "
+          f"on the card) at stages {list(ZERO_STEP_STAGES)}, one step each: "
+          f"loss {st[0]['loss']!r} at every stage and rank; gradients "
+          f"bit for bit stage 0's; parameters after the step within "
+          f"{json.dumps({s: float(f'{v:.3g}') for s, v in worst.items()})} "
+          f"(<= {ZERO_STEP_RTOL}); grad norm "
+          f"{[st[s]['grad_norm'] for s in ZERO_STEP_STAGES]}; "
+          f"{json.dumps(table)}; launches a rank {ranks[0]['launches']}; "
+          f"{wall:.1f} s with the processes' start", flush=True)
+    return {r: ranks[r]["launches"] for r in ranks}
+
+
+def zero_train(work: str) -> dict:
+    """(b) hymba-1.5b at full width, ZERO_TRAIN_LAYERS layers, over
+    ``data=2`` at ZERO_TRAIN_STAGES, two steps each."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, ["--zero-worker", "train", work, "cuda"],
+                        MESH_TIMEOUT_S, "zero train")
+    wall = time.perf_counter() - t0
+    per = {s: [r["stages"][str(s)] for r in ranks.values()]
+           for s in ZERO_TRAIN_STAGES}
+    state = {s: [x["param_bytes"] + x["grad_bytes"] + x["moment_bytes"]
+                 for x in per[s]] for s in ZERO_TRAIN_STAGES}
+    loss0 = per[0][0]["steps"][0]["loss"]
+    n = 2 * ZERO_TRAIN_LAYERS          # forward and remat recompute
+    for s in ZERO_TRAIN_STAGES:
+        for x in per[s]:
+            check(math.isfinite(x["steps"][-1]["loss"]),
+                  f"zero train: stage {s}'s loss is not finite")
+            check(x["steps"][0]["loss"] == loss0, f"zero train: stage {s}'s "
+                  f"first loss {x['steps'][0]['loss']!r} is not stage 0's "
+                  f"{loss0!r}")
+            for st in x["steps"]:
+                got = [st["launches"].get(k, 0)
+                       for k in ("flash_attention", "ssd_scan")]
+                check(got == [n, n], f"zero train: stage {s} launched "
+                      f"{st['launches']} a step, expected {n} of each")
+    ratio = {s: max(a / b for a, b in zip(state[s], state[0]))
+             for s in ZERO_TRAIN_STAGES}
+    check(ratio[3] <= ZERO_HALF,
+          f"zero train: state a rank, stage over stage 0: {ratio}")
+    table = {s: {
+        "state GB by rank (params, grads, moments)": [
+            [round(x[k] / 1e9, 3)
+             for k in ("param_bytes", "grad_bytes", "moment_bytes")]
+            for x in per[s]],
+        "peak GiB": [round(x["peak"] / 2**30, 2) for x in per[s]],
+        "losses": [x["steps"][-1]["loss"] for x in per[s]],
+        "step s (cold, warm)": [[round(st["wall_s"], 3) for st in x["steps"]]
+                                for x in per[s]],
+        "warm step [calls, bytes, s] rank 0": per[s][0]["steps"][-1][
+            "traffic"]} for s in ZERO_TRAIN_STAGES}
+    print(f"zero (b): hymba-1.5b at full width, {ZERO_TRAIN_LAYERS} layers, "
+          f"over {ZERO_TRAIN_MESH} (2 gloo ranks on the card), seq "
+          f"{ZERO_TRAIN_SEQ} x {ZERO_TRAIN_BATCH}, remat full, stages "
+          f"{list(ZERO_TRAIN_STAGES)}, {ZERO_TRAIN_STEPS} steps each: first "
+          f"loss {loss0!r} at every stage; state a rank over stage 0's "
+          f"{json.dumps({s: round(v, 4) for s, v in ratio.items()})}; "
+          f"{json.dumps(table)}; launches a rank "
+          f"{[r['launches'] for r in ranks.values()]}; {wall:.1f} s with "
+          "the processes' start", flush=True)
+    return {r: ranks[r]["launches"] for r in ranks}
+
+
+def zero_path(dev) -> dict:
+    """Phase 22: (a) reduced qwen3-moe at stages 0-3 over ``data=2,
+    model=2``; (b) hymba-1.5b over ``data=2`` at stages 0 and 3.  The
+    launches are the ranks' own."""
+    free_card()               # the ranks share the card with this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        per_rank = [zero_step(work), zero_train(work)]
+    launches = {}
+    for part in per_rank:
+        for counts in part.values():
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+    seconds = time.perf_counter() - t0
+    print(f"zero: phase 22 in {seconds:.1f} s, launches on the ranks "
+          f"{launches}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4334,11 +4625,14 @@ def main() -> int:
     lap("probe")
     mesh = mesh_path(dev)
     lap("mesh")
+    zero = zero_path(dev)
+    lap("zero")
     for kern, name in zip(kernels, ("schedule_eval", "gate_quantile",
                                     "flash_attention", "ssd_scan")):
         kern["launches"] += (dry["launches"].get(name, 0)
                              + probe["launches"].get(name, 0)
-                             + mesh["launches"].get(name, 0))
+                             + mesh["launches"].get(name, 0)
+                             + zero["launches"].get(name, 0))
     print(f"phase seconds ({sum(laps.values()):.1f} in all): "
           + json.dumps(laps), flush=True)
 
@@ -4346,7 +4640,7 @@ def main() -> int:
              "forecast": forecast, "structure": structure, "stream": stream,
              "learn": learn, "cluster": cluster, "shard": sharded,
              "families": family, "train": train, "dryrun": dry,
-             "probe": probe, "mesh": mesh}
+             "probe": probe, "mesh": mesh, "zero": zero}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",
@@ -4369,6 +4663,8 @@ if __name__ == "__main__":
             sys.exit(fleet_worker())
         if sys.argv[1:2] == ["--mesh-worker"]:
             sys.exit(mesh_worker(*sys.argv[2:5]))
+        if sys.argv[1:2] == ["--zero-worker"]:
+            sys.exit(zero_worker(*sys.argv[2:5]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

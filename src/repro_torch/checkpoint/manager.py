@@ -18,11 +18,13 @@ either package restores a subtree the other wrote:
   ranks in all), and the others wait for the rename, so that a finished
   ``save`` (``wait()``) means a complete checkpoint on every rank.  The
   manifest records the mesh the shards were cut for (``mesh``, its axis
-  sizes); a restore on another mesh raises, naming both.
+  sizes) and the ZeRO stage they hold their blocks at (``zero_stage``);
+  a restore on another mesh, or at another stage, raises, naming both.
 
 Format: ``step_{N:08d}/proc_{i}.npz`` (one array per leaf, keyed by its
 ``/``-joined path, e.g. ``params/blocks/attn/wq``) and ``manifest.json``
-with the step and the keys (and the mesh, where there is one).  numpy has
+with the step and the keys (and the mesh and stage, where there is a
+mesh).  numpy has
 no bfloat16, so a bfloat16 leaf is stored as float32 (exact) and cast
 back on restore.
 """
@@ -64,16 +66,18 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 class CheckpointManager:
     """``mesh``: the axis sizes the shards are cut for (``{"data": 2,
-    "model": 2}``; None on one card); ``processes``: the ranks that each
+    "model": 2}``; None on one card); ``zero_stage``: the ZeRO stage of
+    their blocks (None on one card); ``processes``: the ranks that each
     write a shard of every checkpoint."""
 
     def __init__(self, directory: str, keep: int = 3,
                  process_index: int = 0, mesh: dict | None = None,
-                 processes: int = 1):
+                 processes: int = 1, zero_stage: int | None = None):
         self.dir = directory
         self.keep = keep
         self.process_index = process_index
         self.mesh = dict(mesh) if mesh is not None else None
+        self.zero_stage = zero_stage
         self.processes = processes
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
@@ -107,6 +111,8 @@ class CheckpointManager:
         manifest = {"step": step, "keys": sorted(flat)}
         if self.mesh is not None:
             manifest["mesh"] = self.mesh
+        if self.zero_stage is not None:
+            manifest["zero_stage"] = self.zero_stage
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -164,10 +170,16 @@ class CheckpointManager:
             return None
         with open(os.path.join(self.dir, f"step_{step:08d}",
                                "manifest.json")) as f:
-            saved = json.load(f).get("mesh")
+            manifest = json.load(f)
+        saved = manifest.get("mesh")
         if saved != self.mesh:
             raise ValueError(f"checkpoint {step} holds shards for the mesh "
                              f"{saved}, but this run's mesh is {self.mesh}")
+        stage = manifest.get("zero_stage")
+        if stage != self.zero_stage:
+            raise ValueError(f"checkpoint {step} holds blocks at ZeRO stage "
+                             f"{stage}, but this run's stage is "
+                             f"{self.zero_stage}")
         path = os.path.join(self.dir, f"step_{step:08d}",
                             f"proc_{self.process_index}.npz")
         with np.load(path) as data:

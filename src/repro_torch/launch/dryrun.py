@@ -21,19 +21,20 @@ and dtypes only, and the kernel entries return their outputs' shapes
 there.  The same ``build_cell`` runs on a real device
 (``device="cuda"``): that is how ``chip_smoke.py`` holds the counts to a
 step on the card.  On a mesh of more than one device the counted program
-is rank 0's local step: its blocks of the parameters
-(``params.param_local_shapes``) and of the batch
-(``sharding.batch_shard``) under a counted mesh
-(``ProcessMesh.counted``), on which ``models.parallel``'s collectives
-count the bytes they would reduce and move none.  The record then holds
-``collective_bytes`` (per mesh axis in ``coll_mix``) and ``wire_bytes``,
-a ring all-reduce's ``2 (n - 1) / n`` of them, which ``roofline`` turns
-into the collective term.  A placed run holds ZeRO stage 0 (ZeRO is not
-ported), so the counted step does too whatever the policy's stage; the
-analytic parameter bytes keep the policy's, and where that stage is above
-0 the record's ``fits`` is None (not modelled), with ``fits_note``.  Where the policy asks for
-microbatches, one microbatch's step is counted, plus the loss and
-gradient of the other ``n - 1`` (their shapes are identical), and the
+is rank 0's local step at the policy's ZeRO stage: its blocks of the
+parameters (``params.param_local_shapes`` under the stage's rules), of
+the AdamW moments (stage 3's blocks at stages 1-3) and of the batch
+(``sharding.batch_shard``) under a counted mesh (``ProcessMesh.counted``),
+on which ``models.parallel``'s collectives count the bytes they would
+move and move none.  The record then holds ``collective_bytes``, per
+mesh axis in ``coll_mix`` and per axis and op in ``coll_ops``, and
+``wire_bytes``, the bytes a rank sends for them as rings (an all-reduce
+``2 (n - 1) / n`` of its bytes, an all-gather or a reduce-scatter
+``(n - 1) / n``), which ``roofline`` turns into the collective term; and
+``fits``, the counted peak against the card's memory.  The parameter and
+moment bytes a device are those rank 0's blocks hold.  Where the policy
+asks for microbatches, one microbatch's step is counted, plus the loss
+and gradient of the other ``n - 1`` (their shapes are identical), and the
 peak adds the accumulated float32 gradient.
 
 Usage:
@@ -46,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -66,7 +68,7 @@ from repro_torch.models.common import (ArchConfig, SHAPES, ShapeCfg,
                                        supports_shape)
 from repro_torch.models.params import (init_params, local_shape,
                                        param_specs, sharded_size_bytes,
-                                       tree_map_defs)
+                                       tree_leaves, tree_map_defs)
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train.loop import TrainConfig, make_train_step
 
@@ -216,6 +218,7 @@ def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
         if dev.type != "meta":
             raise ValueError("a mesh's local step is counted on meta only")
         par = make_parallel(cfg, ProcessMesh.counted(mesh),
+                            zero_stage=int(policy["zero_stage"]),
                             remat=par.remat, attn_block=par.attn_block)
         rules = par.effective_rules()
         defs = tree_map_defs(lambda d: dataclasses.replace(
@@ -239,7 +242,8 @@ def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
         opt_cfg = AdamWConfig(moment_dtype=dtype_of(policy["moment_dtype"]))
         step = make_train_step(model, TrainConfig(microbatches=1,
                                                   opt=opt_cfg))
-        opt_state = adamw_init(dict(model.named_parameters()), opt_cfg)
+        opt_state = adamw_init(dict(model.named_parameters()), opt_cfg,
+                               par, model.placement)
         return Cell(step, (opt_state, None, batch), live, model.loss,
                     micro, model, opt_state)
     fn = model.prefill if sc.kind == "prefill" else model.decode
@@ -250,7 +254,8 @@ def count_cell(cell: Cell) -> tuple[dict, dict, op_analysis.CostMode]:
     """``(cost, memory, mode)`` of one step of ``cell``: the counted step,
     plus ``micro - 1`` more microbatches' loss and gradient; the peak adds
     the float32 gradient they accumulate into.  ``cost`` adds the
-    collectives' ``collective_bytes`` and ``coll_mix`` (per axis)."""
+    collectives' ``collective_bytes``, ``coll_mix`` (per axis) and
+    ``coll_ops`` (per axis and op)."""
     _, mode = op_analysis.count(cell.fn, *cell.args, live=cell.live)
     cost = op_analysis.cost_dict(mode)
     coll = op_analysis.collective_dict(mode)
@@ -260,25 +265,37 @@ def count_cell(cell: Cell) -> tuple[dict, dict, op_analysis.CostMode]:
                                      live=cell.live)
         for k in cost:
             cost[k] += (cell.micro - 1) * op_analysis.cost_dict(extra)[k]
-        for axis, b in op_analysis.collective_dict(extra).items():
-            coll[axis] = coll.get(axis, 0) + (cell.micro - 1) * b
+        for axis, ops in op_analysis.collective_dict(extra).items():
+            for op, b in ops.items():
+                mine = coll.setdefault(axis, {})
+                mine[op] = mine.get(op, 0) + (cell.micro - 1) * b
         memory["temp_bytes"] += sum(4 * p.numel() for p in cell.live)
-    cost["collective_bytes"] = float(sum(coll.values()))
-    cost["coll_mix"] = coll
+    cost["collective_bytes"] = float(sum(b for ops in coll.values()
+                                         for b in ops.values()))
+    cost["coll_mix"] = {a: sum(ops.values()) for a, ops in coll.items()}
+    cost["coll_ops"] = coll
     return cost, memory, mode
 
 
-def wire_bytes(coll_mix: dict, mesh: MeshShape) -> float:
-    """The bytes a rank sends for ``coll_mix``'s all-reduces (bytes per
-    axis) as rings: ``2 (n - 1) / n`` of each axis's bytes."""
-    return float(sum(b * 2 * (mesh.shape[a] - 1) / mesh.shape[a]
-                     for a, b in coll_mix.items()))
+# A ring's bytes sent per byte of the collective's whole tensor, over n
+# ranks, times n / (n - 1).
+_RING = {"all_reduce": 2, "all_gather": 1, "reduce_scatter": 1}
+
+
+def wire_bytes(coll_ops: dict, mesh: MeshShape) -> float:
+    """The bytes a rank sends for ``coll_ops``' collectives (bytes per
+    axis and op) as rings: ``2 (n - 1) / n`` of an all-reduce's bytes,
+    ``(n - 1) / n`` of an all-gather's or a reduce-scatter's."""
+    return float(sum(b * _RING[op] * (mesh.shape[a] - 1) / mesh.shape[a]
+                     for a, ops in coll_ops.items()
+                     for op, b in ops.items()))
 
 
 def _param_bytes(cfg: ArchConfig, dtype: torch.dtype, rules,
                  mesh: MeshShape) -> int:
-    return sharded_size_bytes(_cast_defs(model_defs(cfg), dtype), rules,
-                              mesh.shape)
+    """The bytes of rank 0's blocks of every leaf under ``rules``."""
+    return sum(math.prod(local_shape(d, rules, mesh)) * d.dtype.itemsize
+               for d in tree_leaves(_cast_defs(model_defs(cfg), dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -310,36 +327,30 @@ def run_cell(arch: str, shape: str | ShapeCfg,
     try:
         cost, memory, _ = count_cell(build_cell(cfg, sc, policy,
                                                 mesh=mesh))
-        coll = cost.pop("coll_mix")
+        coll, ops = cost.pop("coll_mix"), cost.pop("coll_ops")
         devices = mesh.size
-        rules = effective_rules(cfg, mesh, int(policy["zero_stage"]))
+        stage = int(policy["zero_stage"])
+        rules = effective_rules(cfg, mesh, stage)
         rec["cost_total"] = {k: v * devices for k, v in cost.items()}
         rec["memory"] = memory
         rec["flops"] = cost["flops"]
         rec["bytes"] = cost["bytes"]
         if devices > 1:
-            rec["local_step"] = ("rank 0's blocks at ZeRO stage 0 on a "
-                                 "counted mesh; cost_total is it times "
-                                 "the devices")
+            rec["local_step"] = (f"rank 0's blocks at ZeRO stage {stage} "
+                                 "on a counted mesh; cost_total is it "
+                                 "times the devices")
             rec["collective_bytes"] = cost["collective_bytes"]
             rec["coll_mix"] = coll
-            rec["wire_bytes"] = wire_bytes(coll, mesh)
+            rec["coll_ops"] = ops
+            rec["wire_bytes"] = wire_bytes(ops, mesh)
         rec["param_bytes_per_device"] = _param_bytes(
             cfg, dtype_of(policy["param_dtype"]), rules, mesh)
         if sc.kind == "train":
             rec["moment_bytes_per_device"] = 2 * _param_bytes(
-                cfg, dtype_of(policy["moment_dtype"]), rules, mesh)
+                cfg, dtype_of(policy["moment_dtype"]),
+                effective_rules(cfg, mesh, 3 if stage else 0), mesh)
         peak = memory["argument_bytes"] + memory["temp_bytes"]
-        stage = int(policy["zero_stage"])
-        if devices > 1 and stage:
-            # The counted step holds whole blocks (stage 0); the policy's
-            # program shards them further over data.
-            rec["fits"] = None
-            rec["fits_note"] = (f"not modelled: the policy's ZeRO stage "
-                                f"{stage} is not ported, and the counted "
-                                "step is stage 0's")
-        else:
-            rec["fits"] = peak <= hbm_bytes
+        rec["fits"] = peak <= hbm_bytes
         rec["hbm_bytes"] = hbm_bytes
         rec["status"] = "ok"
     except Exception as e:  # noqa: BLE001 - cell failures are data

@@ -33,9 +33,10 @@ counted.
 :func:`cost_dict` and :func:`memory_dict` return the reference's keys, so
 ``roofline.analyze`` reads the port's records as the reference's reads
 its own.  :func:`collective_dict` is the counterpart of the reference's
-collective parse: the bytes ``models.parallel``'s all-reduces reduced
-during the call, per mesh axis (they are the only place bytes cross
-ranks, and on a counted mesh they count without moving).  Not ported,
+collective parse: the bytes ``models.parallel``'s collectives moved
+during the call, per mesh axis and op (``all_reduce``, ``all_gather``,
+``reduce_scatter``; they are the only place bytes cross ranks, and on a
+counted mesh they count without moving).  Not ported,
 and why: the bf16-dot correction (an artifact of XLA's CPU backend) and
 the probe extrapolation over a ``while`` body counted once (the port's
 layer stack is a Python loop, counted L times).
@@ -98,8 +99,8 @@ class CostMode(TorchDispatchMode):
         self.output_alias_bytes = 0
         self._storages: dict[int, int] = {}
         self.quiet = 0
-        self.collective: dict[str, int] = {}   # all-reduce bytes per axis,
-        # set by count()
+        self.collective: dict[str, dict[str, int]] = {}  # bytes per axis
+        # and op, set by count()
         self._arguments: set[int] = set()
         for t in live:
             self._arguments.add(self._track(t))
@@ -192,12 +193,15 @@ def count(fn: Callable, *args, live: Iterable[torch.Tensor] = (), **kwargs):
     """``(fn(*args, **kwargs), mode)``: the call run under a fresh
     :class:`CostMode` whose live tensors are ``args``' and ``live``'s."""
     mode = CostMode(live=[*tensors(args, kwargs), *live])
-    before = {a: v[1] for a, v in parallel.TRAFFIC.items()}
+    before = parallel.traffic_table()
     with mode:
         out = fn(*args, **kwargs)
-    mode.collective = {a: v[1] - before.get(a, 0)
-                       for a, v in parallel.TRAFFIC.items()
-                       if v[1] > before.get(a, 0)}
+    for a, ops in parallel.traffic_table().items():
+        moved = {op: b - before.get(a, {}).get(op, 0)
+                 for op, b in ops.items()}
+        moved = {op: b for op, b in moved.items() if b > 0}
+        if moved:
+            mode.collective[a] = moved
     mode.output_bytes = sum(t.untyped_storage().nbytes() for t in
                             {_storage_key(t): t
                              for t in tensors(out)}.values())
@@ -212,8 +216,10 @@ def cost_dict(mode: CostMode) -> dict:
 
 
 def collective_dict(mode: CostMode) -> dict:
-    """The bytes the counted call all-reduced, per mesh axis."""
-    return {a: int(b) for a, b in sorted(mode.collective.items())}
+    """The bytes the counted call's collectives moved, per mesh axis and
+    op (``{"data": {"all_gather": n, ...}, ...}``)."""
+    return {a: {op: int(b) for op, b in sorted(ops.items())}
+            for a, ops in sorted(mode.collective.items())}
 
 
 def memory_dict(mode: CostMode) -> dict:

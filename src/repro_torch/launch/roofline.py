@@ -9,12 +9,14 @@ cell, one NVIDIA H100 SXM per device:
 
 FLOPs and op bytes come from ``launch.op_analysis`` (every aten op and
 every kernel's own formula, the layer stack counted L times), per
-device: on a mesh, rank 0's local step.  ``wire_bytes`` are the bytes a
-rank sends for the all-reduces ``models.parallel`` counted in that step
-(a ring's ``2 (n - 1) / n`` of them, per mesh axis), and ``LINK_BW`` is
-NVLink 4's one-direction rate from the H100 SXM data sheet, not a
-measured rate (the port's fleets on one card reduce through gloo's host
-staging, far slower).  ``memory_hlo_s`` is the op bytes' time (unfused:
+device: on a mesh, rank 0's local step at the policy's ZeRO stage.
+``wire_bytes`` are the bytes a rank sends for the collectives
+``models.parallel`` counted in that step (as rings: ``2 (n - 1) / n`` of
+an all-reduce's bytes, ``(n - 1) / n`` of an all-gather's or a
+reduce-scatter's, per mesh axis), and ``LINK_BW`` is NVLink 4's
+one-direction rate from the H100 SXM data sheet, not a measured rate
+(the port's fleets on one card move them through gloo's host staging,
+far slower).  ``memory_hlo_s`` is the op bytes' time (unfused:
 an overestimate); the bottleneck decision uses the analytic post-fusion
 model, as the reference's does.
 

@@ -12,7 +12,10 @@ replication; ``zero_stage=3`` additionally shards every weight's
 tuple): batch dims over ("pod","data") when divisible, KV caches' head
 dims over ``"model"`` when divisible, scalars replicated.
 
-``make_parallel`` is the reference's, with a :class:`ProcessMesh`.
+``make_parallel`` is the reference's, with a :class:`ProcessMesh`, at
+ZeRO stages 0-3 in the reference's meaning (1: the AdamW moments sharded
+over the data axes by stage 3's rules; 2: also the expert bank's
+``expert_embed``; 3: every weight's ``embed``).
 :func:`batch_shard` is the counterpart of ``batch_shardings``: where the
 reference puts a global batch on the mesh under ``NamedSharding``s, it
 cuts this rank's block of every key.  Its caches are the blocks the
@@ -21,23 +24,24 @@ model's layers hold: a KV cache the kv heads this rank's q heads read
 only q heads do), an SSM state its head block, a conv state the rank's
 ``ssm_inner`` channels with the replicated B/C channels (``batch_pspecs``
 replicates it: GSPMD would gather the new column each step, and the port
-gathers nothing).  Not ported: ZeRO on a mesh (every stage needs
-``all_gather``/``reduce_scatter``), and the sequence sharding
-switches (``seq_shard``, ``kv_seq_shard``), which nothing in the port
-sets, and ``moe_ep=False``: experts sharded over ``model`` always take
-the expert-parallel dispatch (the reference's other branch is GSPMD's
-sharding of the single-device dispatch, which needs ``all_gather``).
+gathers nothing).  Not ported: the sequence sharding switches
+(``seq_shard``, ``kv_seq_shard``), which nothing in the port sets, and
+``moe_ep=False``: experts sharded over ``model`` always take the
+expert-parallel dispatch (the reference's other branch is GSPMD's
+sharding of the single-device dispatch over ``model``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.models.api import model_defs
 from repro_torch.models.attention import head_blocks
 from repro_torch.models.common import ArchConfig, SHAPES, ShapeCfg, input_specs
 from repro_torch.models.params import (DEFAULT_RULES, ParamDef,
-                                       ShardingRules, local_slices)
-from repro_torch.models.parallel import ParallelCfg, sum_no_grad
+                                       ShardingRules, local_shape,
+                                       tree_leaves)
+from repro_torch.models.parallel import ParallelCfg, all_gather
 from repro_torch.models.ssm import ssm_blocks
 
 
@@ -71,39 +75,40 @@ def auto_rules(cfg: ArchConfig, mesh: MeshShape, zero_stage: int = 0
 
 def effective_rules(cfg: ArchConfig, mesh: MeshShape | None,
                     zero_stage: int = 0) -> ShardingRules:
-    """The rules a model of ``cfg`` sees on ``mesh``: ``auto_rules`` at the
-    model's ZeRO stage (ZeRO-1 shards only optimizer state, so the model
-    sees stage 0), adjusted as the reference's
-    ``ParallelCfg.effective_rules`` adjusts them."""
-    stage = 0 if zero_stage == 1 else zero_stage
-    if mesh is None:
-        r = DEFAULT_RULES
-    else:
-        r = auto_rules(cfg, mesh, stage)
-        if "pod" in mesh.axis_names:
-            r = r.replace(batch=("pod", "data"),
-                          fsdp=("pod", "data") if stage else None)
-    if stage >= 3:
-        r = r.replace(embed=r.mesh_axes("fsdp"))
-    return r
+    """The rules a model of ``cfg`` sees on ``mesh`` (a shape will do) at
+    ``zero_stage``: ``auto_rules`` adjusted as the reference's
+    ``ParallelCfg.effective_rules`` adjusts them (ZeRO-1 shards only
+    optimizer state, so the model sees stage 0's)."""
+    rules = auto_rules(cfg, mesh, zero_stage) if mesh is not None \
+        else DEFAULT_RULES
+    return ParallelCfg(mesh=mesh, rules=rules,
+                       zero_stage=zero_stage).effective_rules()
 
 
 def make_parallel(cfg: ArchConfig, mesh: ProcessMesh | None, *,
                   zero_stage: int = 0, remat: str = "full",
                   attn_block: int = 2048) -> ParallelCfg:
-    """The ``ParallelCfg`` of ``cfg`` on ``mesh`` (None: one card): the
-    rules ``auto_rules`` adapts to the arch.  A mesh takes ZeRO stage 0
-    only: every stage shards weights or moments over ``data``, which
-    needs ``all_gather`` / ``reduce_scatter``, and the port's collectives
-    are all-reduces."""
-    if mesh is not None and zero_stage:
-        raise NotImplementedError(
-            f"zero_stage={zero_stage} on a mesh: ZeRO is not ported (it "
-            "needs all_gather / reduce_scatter; the port's collectives are "
-            "all-reduces)")
-    rules = auto_rules(cfg, mesh) if mesh is not None else DEFAULT_RULES
-    return ParallelCfg(mesh=mesh, rules=rules, remat=remat,
-                       attn_block=attn_block)
+    """The ``ParallelCfg`` of ``cfg`` on ``mesh`` (None: one card) at ZeRO
+    ``zero_stage`` (0-3): the rules ``auto_rules`` adapts to the arch.
+    Raises a ``ValueError`` for another stage, and where the data axes do
+    not split a dimension that the stage shards over them (the model's
+    blocks, or the moments')."""
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(f"zero_stage={zero_stage}: the stages are 0-3")
+    if mesh is None:
+        return ParallelCfg(rules=DEFAULT_RULES, remat=remat,
+                           attn_block=attn_block, zero_stage=zero_stage)
+    par = ParallelCfg(mesh=mesh, rules=auto_rules(cfg, mesh, zero_stage),
+                      remat=remat, attn_block=attn_block,
+                      zero_stage=zero_stage)
+    for d in tree_leaves(model_defs(cfg)):
+        for rules in (par.effective_rules(), par.moment_rules()):
+            try:
+                local_shape(d, rules, mesh)
+            except ValueError as e:
+                raise ValueError(f"zero_stage={zero_stage} on the mesh "
+                                 f"{mesh.shape}: {e}") from None
+    return par
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +199,14 @@ def batch_shard(batch: dict, cfg: ArchConfig, par: ParallelCfg) -> dict:
     return out
 
 
-def gather_params(local: dict, defs: dict, par: ParallelCfg) -> dict:
+def gather_params(local: dict, defs: dict, par: ParallelCfg,
+                  rules: ShardingRules | None = None) -> dict:
     """The whole of each leaf of ``local`` (a flat dict by
     ``named_parameters`` name: parameters, gradients or moments), on every
-    rank: each rank's block is put in place in zeros and summed over the
-    mesh axes the leaf splits on (all-reduces only; a check, not a step)."""
-    rules, mesh = par.effective_rules(), par.mesh
+    rank: each dimension split over mesh axes under ``rules`` (the model's
+    by default; ``par.moment_rules()`` for moments) all-gathered over
+    them (a check, not a step)."""
+    rules = par.effective_rules() if rules is None else rules
     out = {}
 
     def walk(d, name):
@@ -208,14 +215,10 @@ def gather_params(local: dict, defs: dict, par: ParallelCfg) -> dict:
                 walk(d[k], f"{name}.{k}" if name else k)
             return
         t = local[name]
-        axes = [a for ax in rules.spec(d.logical) if ax is not None
-                for a in (ax if isinstance(ax, tuple) else (ax,))]
-        if mesh is None or not axes:
-            out[name] = t
-            return
-        full = t.new_zeros(d.shape)
-        full[local_slices(d, rules, mesh)] = t
-        out[name] = sum_no_grad(full, par, tuple(axes))
+        for dim, ax in enumerate(rules.spec(d.logical)):
+            if ax is not None and par.mesh is not None:
+                t = all_gather(t, par, dim, ax)
+        out[name] = t
 
     walk(defs, "")
     return out

@@ -19,7 +19,11 @@ On a mesh (``par.mesh``) a Model holds its rank's blocks of the tree
 (``launch.sharding.batch_shard``).  ``loss`` then returns the rank's share
 of the global loss and its blocks' gradients (``train.loop`` sums both
 over the data ranks), ``prefill`` and ``decode`` the logits of the rank's
-batch rows over the whole vocabulary and the rank's caches.
+batch rows over the whole vocabulary and the rank's caches.  At ZeRO
+stage 3 (the reference trains its big cells and serves its 1 T cells
+there) the embedding, final norm and unembedding are gathered over the
+data axes as each forward starts (:func:`_top`), each layer's weights as
+the layer starts (``families.block_apply``).
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ from repro_torch.models.layers import (cast, chunked_ce_loss, embed_apply,
                                        embed_defs, gather_vocab, logits_apply,
                                        matmul_f32, norm_apply, norm_defs,
                                        sinusoidal_pos, unembed_defs)
-from repro_torch.models.params import init_params, leaf_block
-from repro_torch.models.parallel import ParallelCfg
+from repro_torch.models.params import init_params, leaf_block, \
+    logical_specs
+from repro_torch.models.parallel import ParallelCfg, gather_tree, placement
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -51,6 +56,20 @@ def model_defs(cfg: ArchConfig) -> dict:
             families.block_defs(cfg, encoder=True), cfg.n_encoder_layers)
         defs["enc_norm"] = norm_defs(cfg.d_model, cfg.norm)
     return defs
+
+
+@functools.lru_cache(maxsize=None)
+def _top_logical(cfg: ArchConfig) -> dict:
+    """The logical axes of the leaves outside the layer stacks."""
+    return {k: logical_specs(d) for k, d in model_defs(cfg).items()
+            if k not in ("blocks", "encoder")}
+
+
+def _top(params: dict, cfg: ArchConfig, par: ParallelCfg) -> dict:
+    """``params`` with the embedding, norms and unembedding gathered over
+    the data axes where they are split (ZeRO-3); the layer stacks stay in
+    blocks, for each layer to gather its own."""
+    return gather_tree(params, _top_logical(cfg), par)
 
 
 def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor,
@@ -111,6 +130,7 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg
     axis, this rank's share of it: the shares add up to the loss.  The
     aux term comes from the replicated router, so every model rank holds
     it once."""
+    params = _top(params, cfg, par)
     x = _embed_in(params, cfg, batch, par)
     enc = None
     if cfg.n_encoder_layers:
@@ -149,6 +169,7 @@ def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     model's include the encoder output's cross K/V (``enc_out``,
     ``enc_out_v``).
     """
+    params = _top(params, cfg, par)
     x = _embed_in(params, cfg, batch, par)
     enc = None
     if cfg.n_encoder_layers:
@@ -164,6 +185,7 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     """One decode step. batch: token [B,1], pos (scalar or [B]), + caches
     [L, ...].  Returns (logits [B, V], new_caches dict); the input caches
     are left as they were."""
+    params = _top(params, cfg, par)
     x = _embed_in(params, cfg, batch, par, decode=True)
     if cfg.pos == "sinusoidal":
         pe = _decode_sinusoid(batch["pos"], x.shape[0], cfg.d_model,
@@ -181,22 +203,6 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
         pos=batch["pos"], caches=caches)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return _logits(params, cfg, x[:, 0], par), _caches_out(new_caches)
-
-
-def _model_sharded(defs: dict, par: ParallelCfg,
-                   prefix: str = "") -> frozenset:
-    """The ``named_parameters`` names of the leaves split over ``model``."""
-    if par.model_axis_size == 1:
-        return frozenset()
-    rules = par.effective_rules()
-    out = set()
-    for k, d in defs.items():
-        name = f"{prefix}.{k}" if prefix else k
-        if isinstance(d, dict):
-            out |= _model_sharded(d, par, name)
-        elif "model" in rules.spec(d.logical):
-            out.add(name)
-    return frozenset(out)
 
 
 class _Tree(nn.Module):
@@ -229,7 +235,8 @@ class Model(_Tree):
                  par: ParallelCfg = ParallelCfg()):
         super().__init__(params)
         self.cfg, self.par = cfg, par
-        self.sharded = _model_sharded(model_defs(cfg), par)
+        self.placement = placement(model_defs(cfg), par)
+        self.sharded = self.placement.model
 
     @property
     def device(self) -> torch.device:

@@ -12,7 +12,11 @@ paths:
 On a mesh each sub-layer holds its rank's blocks and sums over ``model``
 where it must (``parallel``); a hybrid block's attention branch runs whole
 on every rank when its heads are replicated, and meets the SSM branch's
-summed output.
+summed output.  At ZeRO stage 3 each layer gathers its own weights over
+the data axes as it starts (``parallel.gather_tree``), inside its remat
+in train mode: under ``full`` the whole weights live only while the layer
+runs, and the backward's recompute gathers them again (FSDP's per-layer
+unit).
 Parameters are stacked with a leading layer axis, as in the reference;
 :func:`stack_apply` is a Python loop over it (the reference's
 ``scan_layers=False`` path), each layer under the remat policy in train
@@ -30,8 +34,9 @@ from repro_torch.models import attention, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import mlp_apply, mlp_defs, norm_apply, \
     norm_defs
-from repro_torch.models.params import ParamDef, tree_map_defs
-from repro_torch.models.parallel import ParallelCfg
+from repro_torch.models.params import ParamDef, logical_specs, \
+    tree_map_defs
+from repro_torch.models.parallel import ParallelCfg, gather_tree
 
 
 def stack_defs(defs, n_layers: int):
@@ -62,10 +67,20 @@ def block_defs(cfg: ArchConfig, encoder: bool = False) -> dict:
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def block_logical(cfg: ArchConfig) -> dict:
+    """The logical axes of each leaf of one block (no layer axis; a
+    decoder's, whose leaves include an encoder block's)."""
+    return logical_specs(block_defs(cfg))
+
+
 def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
                 *, mode: str, pos=None, cache: dict | None = None,
                 causal: bool = True, enc: torch.Tensor | None = None):
-    """One decoder/encoder block. Returns (x, new_cache, aux)."""
+    """One decoder/encoder block. Returns (x, new_cache, aux).  ``p`` holds
+    the rank's blocks; those split over the data axes are gathered first
+    (the expert bank is left to ``moe_apply``)."""
+    p = gather_tree(p, block_logical(cfg), par)
     aux = torch.zeros((), device=x.device)
     new_cache: dict = {}
     kind, eps = cfg.norm, cfg.norm_eps

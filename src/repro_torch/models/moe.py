@@ -19,6 +19,12 @@ global batch: on a data axis each rank offsets its ranks by the slots of
 the data ranks before it.  The expert products stay ``torch.matmul``, as
 the reference leaves them to XLA outside any Pallas kernel.
 
+At ZeRO stages 2-3 the expert bank's ``expert_embed`` rows are split over
+the data axes: :func:`moe_apply` casts each rank's block to bf16 and then
+gathers it (``parallel.gather_from_data``), as ``_moe_ep`` does (so the
+gather moves bf16), on either route; the gradient comes back as the
+rank's block of the float32 sum over data.
+
 ``moe_ref`` is the dense oracle (every expert on every token); with a
 capacity factor large enough to drop nothing, :func:`moe_apply` matches it.
 """
@@ -28,11 +34,13 @@ import math
 
 import torch
 
+from repro_torch.models import layers
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (activation, cast, matmul_f32,
                                        row_parallel)
 from repro_torch.models.params import ParamDef
 from repro_torch.models.parallel import (ParallelCfg, copy_to_model,
+                                         data_dim, gather_from_data,
                                          reduce_from_model, sum_no_grad)
 
 def moe_defs(cfg: ArchConfig) -> dict:
@@ -221,6 +229,17 @@ def _data_offset(ids: torch.Tensor, E: int, par: ParallelCfg):
     return sum_no_grad(rows, par, par.batch_axes)[:par.data_index].sum(0)
 
 
+def _expert_bank(p: dict, key: str, cfg: ArchConfig, par: ParallelCfg
+                 ) -> torch.Tensor:
+    """``p[key]`` (``w_in`` or ``w_out``) in bf16, gathered over the data
+    axes where the rules split its ``expert_embed`` rows (after the cast:
+    the all-gather moves bf16)."""
+    dim = data_dim(moe_defs(cfg)[key].logical, par.effective_rules())
+    if dim is None:
+        return cast(p[key])
+    return gather_from_data(p[key], par, dim, layers.COMPUTE_DTYPE)
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar)."""
@@ -230,16 +249,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
     ids, wgt, probs = _route(x2d, p["router"], k)
     aux = aux_loss(probs, ids, E, par)
     e_first, e_local, cap = ep_plan(x2d.shape[0], cfg, par)
+    w_in, w_out = (_expert_bank(p, w, cfg, par) for w in ("w_in", "w_out"))
     if e_local == E:
-        y = _dispatch_compute(x2d, ids, wgt, cast(p["w_in"]),
-                              cast(p["w_out"]), e_first=0, e_local=E,
-                              capacity=cap, act=cfg.act,
+        y = _dispatch_compute(x2d, ids, wgt, w_in, w_out, e_first=0,
+                              e_local=E, capacity=cap, act=cfg.act,
                               offset=_data_offset(ids, E, par))
     else:       # the reference's _moe_ep
         y = _dispatch_compute(copy_to_model(x2d, par),
-                              ids, copy_to_model(wgt, par), cast(p["w_in"]),
-                              cast(p["w_out"]), e_first=e_first,
-                              e_local=e_local, capacity=cap, act=cfg.act)
+                              ids, copy_to_model(wgt, par), w_in, w_out,
+                              e_first=e_first, e_local=e_local, capacity=cap,
+                              act=cfg.act)
         y = reduce_from_model(y.float(), par).to(x2d.dtype)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:

@@ -4,22 +4,20 @@ collectives of a model placed on a mesh.
 The counterpart of ``repro.models.parallel``.  ``ParallelCfg`` carries
 the mesh (a :class:`~repro_torch.launch.mesh.ProcessMesh`: this rank's
 place in a ``(data, model)`` fleet, or None on one card), the
-logical-to-mesh ``rules`` and the perf levers: ``attn_block``
-is the tile of the plain blockwise attention (``attention.flash_unrolled``),
-which the CPU runs and the train mode's backward recomputes (the card's
-kernel tiles itself); ``remat`` the train mode's per-layer recompute
-policy (``families._remat``); ``loss_chunk`` the sequence chunk of the
-cross-entropy.
+logical-to-mesh ``rules``, the ZeRO stage and the perf levers:
+``attn_block`` is the tile of the plain blockwise attention
+(``attention.flash_unrolled``), which the CPU runs and the train mode's
+backward recomputes (the card's kernel tiles itself); ``remat`` the train
+mode's per-layer recompute policy (``families._remat``); ``loss_chunk``
+the sequence chunk of the cross-entropy.
 
 Sharding is by construction, not by annotation: each rank holds only its
 block of every sharded dimension (``params.shard_params``,
 ``launch.sharding.batch_shard``), so ``constrain`` and ``batch_spec`` stay
 no-ops, and what GSPMD inserts in the reference is explicit code in the
 layer that needs it, through the collectives below.  They are the only
-place bytes cross ranks, each an ``all_reduce`` over one mesh axis's gloo
-group (gloo reduces CUDA tensors through the host; NCCL cannot put two
-ranks on one card); nothing here needs an ``all_gather`` or a
-``reduce_scatter``:
+place bytes cross ranks, each over one mesh axis's gloo group (NCCL
+cannot put two ranks on one card).  Over ``model``, all-reduces:
 
 * :func:`reduce_from_model`: the forward sums the partial results of a
   row-parallel product over ``model``; the backward is the identity (its
@@ -30,27 +28,48 @@ ranks on one card); nothing here needs an ``all_gather`` or a
 * :func:`sum_over_model`: both ways a sum, for a statistic that every
   rank reads differently (the gated norm's sum of squares);
 * :func:`all_reduce_max` and :func:`sum_no_grad`: no gradient, for the
-  loss's max and counts;
-* :func:`sum_over_data`: the gradients' sum over the batch axes.  The
-  loss is normalised by the global count of labelled positions, so each
-  data rank's loss is its share of the global loss and the shares'
-  gradients add, as GSPMD's gradient reduce adds them.
+  loss's max and counts.
 
-Partial products are reduced in float32 and rounded once.  The
-reference's ``ar_barrier`` (an XLA partitioner lever that keeps the
-reduce in bf16) is not ported: the port never reduces in bf16.  Every
-collective counts its calls and bytes in :data:`TRAFFIC`; on a counted
-mesh (``ProcessMesh.counted``, the dry run's rank 0 on ``meta``) it
-counts and moves nothing.  On a mesh of one rank, or with no mesh, each
-is the identity.  Not ported: ``zero_stage`` (ZeRO needs ``all_gather``
-and ``reduce_scatter``), ``seq_shard``, ``scan_layers`` and ``moe_ep``
-(experts sharded over ``model`` always take the expert-parallel path).
+Over the batch axes (``data``, and ``pod`` on two pods), the ZeRO
+stages' traffic (``zero_stage``; the reference's meaning of each stage:
+1 shards the moments, 2 also the expert bank, 3 every weight's ``embed``
+dimension, over the data axes):
+
+* :func:`gather_from_data`: the forward all-gathers a data-sharded
+  weight's blocks where a layer uses it (each layer its own, inside its
+  remat: ``families.stack_apply``; the embedding, final norm and
+  unembedding in ``api``; the expert bank in ``moe.moe_apply``, cast to
+  bf16 first); the backward reduce-scatters its gradient in float32, so
+  that each rank gets its block of the sum over data (GSPMD's
+  gather-at-use and its transposed reduce);
+* :func:`sum_over_data`: the gradients of the leaves the model holds
+  whole over data, each an all-reduce over the batch axes, or, at stages
+  1-2 for a leaf whose moments are data-sharded, a reduce-scatter to the
+  moments' block.  The loss is normalised by the global count of
+  labelled positions, so each data rank's loss is its share of the
+  global loss and the shares' gradients add, as GSPMD's gradient reduce
+  adds them;
+* :func:`all_gather` and :func:`reduce_scatter`, the plain collectives
+  under both (AdamW all-gathers a stage 1-2 leaf's updated blocks).
+
+One route per collective: ``all_reduce``, ``all_gather`` and
+``reduce_scatter`` of ``torch.distributed`` on the axis's gloo group,
+with the tensor where it lies (gloo stages a CUDA tensor through the host
+itself).  Partial products and gradients are reduced in float32 and
+rounded once.  The reference's ``ar_barrier`` (an XLA partitioner lever
+that keeps the reduce in bf16) is not ported: the port never reduces in
+bf16.  Every collective counts its calls and bytes in :data:`TRAFFIC`, by
+mesh axis and op; on a counted mesh (``ProcessMesh.counted``, the dry
+run's rank 0 on ``meta``) it counts and moves nothing.  On a mesh of one
+rank, or with no mesh, each is the identity.  Not ported:
+``seq_shard``, ``scan_layers`` and ``moe_ep`` (experts sharded over
+``model`` always take the expert-parallel path).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -70,6 +89,8 @@ class ParallelCfg:
     remat: str = "full"          # full | dots | none  (per-layer recompute)
     attn_block: int = 2048       # flash block size (q and kv)
     loss_chunk: int = 1024       # CE loss seq chunk
+    zero_stage: int = 0          # 0: replicated over data; 1: moments,
+    # 2: and the expert bank, 3: every weight's embed dim over data
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
@@ -104,15 +125,83 @@ class ParallelCfg:
     def tp_sharded(self, logical: str) -> bool:
         """Whether the logical axis ``logical`` is split over ``model``
         (as a weight's first model-mapped dimension, which it is in every
-        weight of the port's layers at ZeRO stage 0)."""
+        weight of the port's layers)."""
         return (self.model_axis_size > 1
                 and self.effective_rules().mesh_axes(logical) == "model")
 
-    def effective_rules(self) -> ShardingRules:
+    def rules_at(self, stage: int) -> ShardingRules:
+        """``rules`` adjusted as the reference's ``effective_rules`` adjusts
+        them for a model at ZeRO ``stage`` (``rules`` being ``auto_rules``
+        at any stage: the expert bank's and ``embed``'s rows are set
+        here)."""
         r = self.rules
-        if self.mesh is not None and "pod" in self.mesh.axis_names:
-            r = r.replace(batch=("pod", "data"), fsdp=None)
+        if self.mesh is not None:
+            if stage >= 2:
+                r = r.replace(expert_embed=self.batch_axes)
+            if "pod" in self.mesh.axis_names:
+                r = r.replace(batch=("pod", "data"),
+                              fsdp=("pod", "data") if stage else None)
+        if stage >= 3:
+            r = r.replace(embed=r.mesh_axes("fsdp"))
         return r
+
+    def effective_rules(self) -> ShardingRules:
+        """The model's rules: ZeRO-1 shards only the moments, so the model
+        sees stage 0's."""
+        return self.rules_at(0 if self.zero_stage == 1 else self.zero_stage)
+
+    def moment_rules(self) -> ShardingRules:
+        """The rules of the AdamW moments: stage 3's at stages 1-3 (the
+        reference's dry run shards them so), the model's at stage 0."""
+        return self.rules_at(3) if self.zero_stage else self.rules_at(0)
+
+
+def data_dim(logical: tuple, rules: ShardingRules) -> int | None:
+    """The dimension of a leaf with logical axes ``logical`` that
+    ``rules`` split over the batch axes (None: none is)."""
+    for i, ax in enumerate(rules.spec(logical)):
+        if ax is not None and any(a in BATCH_AXES for a in
+                                  (ax if isinstance(ax, tuple) else (ax,))):
+            return i
+    return None
+
+
+class Placement(NamedTuple):
+    """Where a model's leaves lie over the mesh, by ``named_parameters``
+    name: ``model`` the leaves split over ``model``; ``data`` each leaf
+    whose block the model's rules split over the data axes, and that
+    dimension (ZeRO stages 2-3: its gradient comes summed, as the block);
+    ``scatter`` each leaf held whole over data whose moments are split
+    there (stages 1-2), and that dimension."""
+    model: frozenset = frozenset()
+    data: dict = {}
+    scatter: dict = {}
+
+
+def placement(defs: dict, par: ParallelCfg) -> Placement:
+    """The :class:`Placement` of the tree ``defs`` under ``par``."""
+    if par.mesh is None:
+        return Placement()
+    rules, moments = par.effective_rules(), par.moment_rules()
+    model, data, scatter = set(), {}, {}
+
+    def walk(t, name):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{name}.{k}" if name else k)
+            return
+        if par.model_axis_size > 1 and "model" in rules.spec(t.logical):
+            model.add(name)
+        if par.data_size > 1:
+            held, dm = data_dim(t.logical, rules), data_dim(t.logical,
+                                                            moments)
+            if held is not None:
+                data[name] = held
+            elif dm is not None:
+                scatter[name] = dm
+
+    walk(defs, "")
+    return Placement(frozenset(model), data, scatter)
 
 
 def constrain(x, par: ParallelCfg, spec=None):
@@ -129,10 +218,12 @@ def batch_spec(par: ParallelCfg, *rest):
 # Traffic counts.
 # ---------------------------------------------------------------------------
 
-# Per mesh axis: [all_reduce calls, bytes reduced, seconds].  Seconds are
+# Per mesh axis and op (all_reduce, all_gather, reduce_scatter): [calls,
+# bytes, seconds].  The bytes are the whole tensor's: an all-reduce's
+# input, an all-gather's output, a reduce-scatter's input.  Seconds are
 # taken only while TIME_COLLECTIVES is set (each call then synchronises
 # its device first, so that the time is the collective's own).
-TRAFFIC: dict[str, list] = {}
+TRAFFIC: dict[str, dict[str, list]] = {}
 TIME_COLLECTIVES = False
 
 
@@ -140,8 +231,35 @@ def reset_traffic() -> None:
     TRAFFIC.clear()
 
 
-def traffic_bytes() -> int:
-    return sum(v[1] for v in TRAFFIC.values())
+def traffic_table(index: int = 1) -> dict:
+    """``{axis: {op: TRAFFIC's column index}}`` (1: bytes)."""
+    return {a: {op: v[index] for op, v in sorted(ops.items())}
+            for a, ops in sorted(TRAFFIC.items())}
+
+
+def _collective(axis: str, op: str, nbytes: int, x: torch.Tensor, par,
+                run) -> torch.Tensor | None:
+    """Count one ``op`` of ``nbytes`` over ``axis`` and run ``run()`` on a
+    placed mesh (timed under TIME_COLLECTIVES); None on a counted one,
+    whose tensors must be ``meta``."""
+    rec = TRAFFIC.setdefault(axis, {}).setdefault(op, [0, 0, 0.0])
+    rec[0] += 1
+    rec[1] += nbytes
+    if not par.mesh.placed:
+        if x.device.type != "meta":
+            raise RuntimeError(
+                "a counted mesh moves no data: run it on meta tensors, or "
+                "place the mesh on a fleet (ProcessMesh.build)")
+        return None
+    if TIME_COLLECTIVES and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    y = run()
+    if TIME_COLLECTIVES:
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        rec[2] += time.perf_counter() - t0
+    return y
 
 
 def _all_reduce(x: torch.Tensor, par: ParallelCfg, axis: str,
@@ -150,25 +268,81 @@ def _all_reduce(x: torch.Tensor, par: ParallelCfg, axis: str,
     mesh = par.mesh
     if mesh is None or mesh.axis_size(axis) == 1:
         return x
-    rec = TRAFFIC.setdefault(axis, [0, 0, 0.0])
-    rec[0] += 1
-    rec[1] += x.numel() * x.element_size()
-    if not mesh.placed:
-        if x.device.type != "meta":
-            raise RuntimeError(
-                "a counted mesh moves no data: run it on meta tensors, or "
-                "place the mesh on a fleet (ProcessMesh.build)")
-        return x.clone()
     y = x.clone(memory_format=torch.contiguous_format)
-    if TIME_COLLECTIVES and y.is_cuda:
-        torch.cuda.synchronize(y.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(y, op=op, group=mesh.groups[axis])
-    if TIME_COLLECTIVES:
-        if y.is_cuda:
-            torch.cuda.synchronize(y.device)
-        rec[2] += time.perf_counter() - t0
+
+    def run():
+        dist.all_reduce(y, op=op, group=mesh.groups[axis])
+        return y
+    _collective(axis, "all_reduce", x.numel() * x.element_size(), x, par,
+                run)
     return y
+
+
+def _gather_one(x: torch.Tensor, par: ParallelCfg, axis: str, dim: int
+                ) -> torch.Tensor:
+    n = par.mesh.axis_size(axis)
+    shape = list(x.shape)
+    shape[dim] *= n
+    xc = x.contiguous()
+    parts = [torch.empty_like(xc) for _ in range(n)]
+
+    def run():
+        dist.all_gather(parts, xc, group=par.mesh.groups[axis])
+        return torch.cat(parts, dim)
+    y = _collective(axis, "all_gather", xc.numel() * n * xc.element_size(),
+                    x, par, run)
+    return x.new_empty(shape) if y is None else y
+
+
+def _scatter_one(x: torch.Tensor, par: ParallelCfg, axis: str, dim: int
+                 ) -> torch.Tensor:
+    n = par.mesh.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"a dimension of {x.shape[dim]} does not split "
+                         f"into {n} blocks over {axis}")
+    parts = [p.contiguous() for p in x.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+
+    def run():
+        dist.reduce_scatter(out, parts, group=par.mesh.groups[axis])
+        return out
+    _collective(axis, "reduce_scatter", x.numel() * x.element_size(), x,
+                par, run)
+    return out
+
+
+def _axes(par: ParallelCfg, axes) -> list[str]:
+    """The axes of ``axes`` (the batch axes when None) with more than one
+    rank, outermost first."""
+    if par.mesh is None:
+        return []
+    axes = par.batch_axes if axes is None else (
+        axes if isinstance(axes, tuple) else (axes,))
+    return [a for a in axes if par.mesh.axis_size(a) > 1]
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, par: ParallelCfg, dim: int,
+               axes=None) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` put together in rank
+    order over ``axes`` (the batch axes by default), as
+    ``jax.lax.all_gather(..., tiled=True)``: over several axes the
+    innermost is gathered first, so that block ``i * n_inner + j`` lands
+    at its place."""
+    for a in reversed(_axes(par, axes)):
+        x = _gather_one(x, par, a, dim)
+    return x
+
+
+@torch.no_grad()
+def reduce_scatter(x: torch.Tensor, par: ParallelCfg, dim: int,
+                   axes=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``
+    over ``axes`` (the batch axes by default): the transpose of
+    :func:`all_gather`, the outermost axis scattered first."""
+    for a in _axes(par, axes):
+        x = _scatter_one(x, par, a, dim)
+    return x
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -203,6 +377,18 @@ class _SumOverModel(torch.autograd.Function):
         return _all_reduce(g, ctx.par, "model"), None
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, par, dim, dtype):
+        ctx.par, ctx.dim, ctx.dtype = par, dim, x.dtype
+        return all_gather(x if dtype is None else x.to(dtype), par, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g.to(ctx.dtype), ctx.par, ctx.dim), None,
+                None, None)
+
+
 def _tp(par: ParallelCfg) -> bool:
     return par.model_axis_size > 1
 
@@ -222,6 +408,39 @@ def sum_over_model(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
     return _SumOverModel.apply(x, par) if _tp(par) else x
 
 
+def gather_from_data(x: torch.Tensor, par: ParallelCfg, dim: int,
+                     dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The whole of a weight split over the batch axes along ``dim`` (cast
+    to ``dtype`` first, where given, so that the gather moves its bytes);
+    its gradient is this rank's block of the sum over the data ranks,
+    reduced in ``x``'s dtype."""
+    if not _axes(par, None):
+        return x if dtype is None else x.to(dtype)
+    return _GatherFromData.apply(x, par, dim, dtype)
+
+
+def gather_tree(tree: dict, logical: dict, par: ParallelCfg) -> dict:
+    """``tree`` (a layer's or the model's top-level weights) with every
+    leaf that the model's rules split over the batch axes gathered whole
+    (:func:`gather_from_data`), ``logical`` giving each leaf's logical
+    axes.  The expert bank (split on ``expert_embed``) is left in blocks
+    for ``moe.moe_apply``, which casts it before its gather."""
+    if not _axes(par, None):
+        return tree
+    rules = par.effective_rules()
+
+    def walk(t, lg):
+        if isinstance(t, dict):
+            return {k: walk(v, lg[k]) if k in lg else v
+                    for k, v in t.items()}
+        d = data_dim(lg, rules)
+        if d is None or lg[d] == "expert_embed":
+            return t
+        return gather_from_data(t, par, d)
+
+    return walk(tree, logical)
+
+
 @torch.no_grad()
 def all_reduce_max(x: torch.Tensor, par: ParallelCfg,
                    axis: str = "model") -> torch.Tensor:
@@ -238,10 +457,23 @@ def sum_no_grad(x: torch.Tensor, par: ParallelCfg,
     return x
 
 
-def sum_over_data(tensors: dict, par: ParallelCfg) -> dict:
-    """Each tensor of ``tensors`` summed over the batch axes (the
-    gradients of the ranks' shares of the loss), as new tensors."""
+def sum_over_data(tensors: dict, par: ParallelCfg,
+                  done: frozenset = frozenset(),
+                  scatter: dict | None = None) -> dict:
+    """Each tensor of ``tensors`` (the gradients of the ranks' shares of
+    the loss) summed over the batch axes, as new tensors: those named in
+    ``done`` are already (``gather_from_data``'s backward reduced them),
+    those in ``scatter`` (name -> dim) are reduce-scattered to this rank's
+    block along their dim, the rest all-reduced."""
     if par.data_size == 1:
         return tensors
-    return {k: sum_no_grad(t, par, par.batch_axes)
-            for k, t in tensors.items()}
+    scatter = scatter or {}
+    out = {}
+    for k, t in tensors.items():
+        if k in done:
+            out[k] = t
+        elif k in scatter:
+            out[k] = reduce_scatter(t, par, scatter[k])
+        else:
+            out[k] = sum_no_grad(t, par, par.batch_axes)
+    return out

@@ -9,10 +9,15 @@ divides as ``(m / bc1) / (sqrt(v / bc2) + eps)``, follows its own
 schedule and decays only tensors with ``ndim >= 2``.
 
 On a mesh each rank holds its blocks of the parameters, gradients and
-moments, and the update is elementwise on them; only the clipping norm
-spans ranks: :func:`global_norm` sums the squares of the model-sharded
-leaves over ``model`` and counts each replicated leaf once, so it is the
-norm of the whole gradient, as the reference's.
+moments (``placement``: a ``parallel.Placement``), and the update is
+elementwise on them.  At ZeRO stages 1-2 a leaf the model holds whole
+over data has its moments, and its gradient (reduce-scattered by
+``parallel.sum_over_data``), as stage 3's blocks: each data rank updates
+its block of the leaf and all-gathers the updated blocks.  The clipping
+norm spans ranks: :func:`global_norm` sums each leaf's squares over the
+mesh axes its gradient's block is split on (``model``, the data axes)
+and counts each replicated leaf once, so it is the norm of the whole
+gradient, as the reference's.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.parallel import ParallelCfg, sum_no_grad
+from repro_torch.models.parallel import (ParallelCfg, Placement, all_gather,
+                                         sum_no_grad)
 
 
 class AdamWConfig(NamedTuple):
@@ -55,9 +61,19 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def adamw_init(params: dict, cfg: AdamWConfig = AdamWConfig()) -> OptState:
+def adamw_init(params: dict, cfg: AdamWConfig = AdamWConfig(),
+               par: ParallelCfg | None = None,
+               placement: Placement = Placement()) -> OptState:
+    """Zero moments of each parameter's shape, or, for a leaf in
+    ``placement.scatter``, of its block over the data axes."""
+    def shape(k, p):
+        s = list(p.shape)
+        if k in placement.scatter:
+            s[placement.scatter[k]] //= par.data_size
+        return s
+
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=cfg.moment_dtype,
+        return {k: torch.zeros(shape(k, p), dtype=cfg.moment_dtype,
                                device=p.device) for k, p in params.items()}
     dev = next(iter(params.values())).device
     return OptState(zeros(), zeros(),
@@ -69,26 +85,42 @@ def _sq(xs) -> torch.Tensor:
 
 
 def global_norm(tree: dict, par: ParallelCfg | None = None,
-                sharded: frozenset = frozenset()) -> torch.Tensor:
-    """The norm of all of ``tree``; on a mesh ``sharded`` names the leaves
-    split over ``model``, whose squares are summed over the model ranks."""
-    if par is None or not sharded:
+                placement: Placement = Placement()) -> torch.Tensor:
+    """The norm of all of ``tree``: on a mesh each leaf's squares are
+    summed over the axes its block is split on (``model`` for
+    ``placement.model``, the data axes for ``placement.data`` and
+    ``placement.scatter``), each group once."""
+    if par is None or par.mesh is None:
         return torch.sqrt(_sq(tree.values()))
-    rep = _sq(x for k, x in tree.items() if k not in sharded)
-    part = _sq(x for k, x in tree.items() if k in sharded)
-    return torch.sqrt(rep + sum_no_grad(part, par))
+    groups: dict[tuple, list] = {}
+    for k, x in tree.items():
+        axes = (("model",) if k in placement.model else ()) + (
+            par.batch_axes if k in placement.data or k in placement.scatter
+            else ())
+        groups.setdefault(axes, []).append(x)
+    total = _sq(groups.pop((), []))
+    for axes, xs in groups.items():
+        total = total + sum_no_grad(_sq(xs), par, axes)
+    return torch.sqrt(total)
+
+
+def _block(p: torch.Tensor, dim: int, par: ParallelCfg) -> torch.Tensor:
+    """This data rank's block of ``p`` along ``dim``."""
+    n = p.shape[dim] // par.data_size
+    return p.narrow(dim, par.data_index * n, n)
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: OptState,
                  cfg: AdamWConfig, par: ParallelCfg | None = None,
-                 sharded: frozenset = frozenset()
+                 placement: Placement = Placement()
                  ) -> tuple[dict, OptState, dict]:
     """One step; returns new tensors (the inputs are not changed).
-    ``par`` and ``sharded``: the mesh and the model-sharded leaves, for
-    the clipping norm (:func:`global_norm`)."""
+    ``par`` and ``placement``: the mesh and where the leaves lie on it,
+    for the clipping norm (:func:`global_norm`) and the leaves updated as
+    blocks (``placement.scatter``)."""
     step = state.step + 1
-    gnorm = global_norm(grads, par, sharded)
+    gnorm = global_norm(grads, par, placement)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     lr = cosine_lr(cfg, step)
@@ -97,6 +129,9 @@ def adamw_update(params: dict, grads: dict, state: OptState,
     bc2 = 1 - cfg.b2 ** sf
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
+        dim = placement.scatter.get(k)
+        if dim is not None:
+            p = _block(p, dim, par)
         g = grads[k].to(torch.float32) * scale
         m = cfg.b1 * state.m[k].to(torch.float32) + (1 - cfg.b1) * g
         v = cfg.b2 * state.v[k].to(torch.float32) + (1 - cfg.b2) * g * g
@@ -106,6 +141,8 @@ def adamw_update(params: dict, grads: dict, state: OptState,
         p32 = p.to(torch.float32)
         p32 = p32 - lr * (u + wd * p32)
         new_p[k] = p32.to(p.dtype)
+        if dim is not None:
+            new_p[k] = all_gather(new_p[k], par, dim)
         new_m[k] = m.to(cfg.moment_dtype)
         new_v[k] = v.to(cfg.moment_dtype)
     return new_p, OptState(new_m, new_v, step), {"grad_norm": gnorm,

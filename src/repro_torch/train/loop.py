@@ -21,13 +21,20 @@ subtree the other wrote.  The compression residual is kept, and saved,
 only when ``compress_grads`` is on (the reference always carries it).
 
 On a mesh (``model.par.mesh``) the model holds its rank's blocks: the
-microbatches' local gradients are accumulated, then summed over the data
-ranks (``parallel.sum_over_data``: each rank's loss is its share of the
-global loss) before compression, where GSPMD's gradient reduce sits in
-the reference; AdamW updates the local blocks, clipping by the norm of
-the whole gradient.  The Trainer cuts its rank's block of every
-pipeline batch (``launch.sharding.batch_shard``), and each rank
-checkpoints its own shard as ``proc_{rank}.npz``.
+microbatches' local gradients are accumulated, as blocks, then summed
+over the data ranks (``parallel.sum_over_data``: each rank's loss is its
+share of the global loss) before compression, where GSPMD's gradient
+reduce sits in the reference.  At ZeRO stages 2-3 the gradients of the
+leaves held in blocks over data come summed already (each microbatch's
+backward reduce-scatters them), at stages 1-2 a leaf held whole whose
+moments are blocks is reduce-scattered to its block, and the rest are
+all-reduced.  AdamW updates the local blocks, clipping by the norm of the
+whole gradient (at stages 1-2 it all-gathers the updated blocks of the
+leaves held whole).  The Trainer cuts its rank's block of every pipeline
+batch (``launch.sharding.batch_shard``) and of every weight and moment at
+the stage, and each rank checkpoints its own shard as
+``proc_{rank}.npz``, with the mesh and the stage in the manifest.
+Compression scales each block the rank holds by its own maximum.
 """
 from __future__ import annotations
 
@@ -99,13 +106,14 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
         loss, grads = grads_of(batch)
         if par.mesh is not None:
             loss = sum_no_grad(loss, par, par.batch_axes)
-            grads = sum_over_data(grads, par)
+            grads = sum_over_data(grads, par, model.placement.data,
+                                  model.placement.scatter)
         metrics = {"loss": loss}
         if tc.compress_grads:
             grads, cstate, cm = compressed_grads(grads, cstate)
             metrics.update(cm)
         new, opt_state, om = adamw_update(params, grads, opt_state, tc.opt,
-                                          par, model.sharded)
+                                          par, model.placement)
         del grads
         with torch.no_grad():
             for k, p in params.items():
@@ -157,7 +165,8 @@ class Trainer:
             ckpt_dir, keep,
             process_index=mesh.rank if mesh is not None else 0,
             mesh=mesh.shape if mesh is not None else None,
-            processes=mesh.size if mesh is not None else 1) \
+            processes=mesh.size if mesh is not None else 1,
+            zero_stage=model.par.zero_stage if mesh is not None else None) \
             if ckpt_dir else None
         self.fault_hook = fault_hook
         self.step_fn = make_train_step(model, tc)
@@ -166,10 +175,11 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
     def init(self, seed: int | None = None) -> None:
-        """Fresh optimizer state and data cursor.  With a ``seed``, the
-        weights are drawn again first, from a ``torch.Generator`` on the
-        model's device seeded with it (``build_model``'s draws); without,
-        the model keeps the weights it has."""
+        """Fresh optimizer state (the moments in their blocks at the ZeRO
+        stage) and data cursor.  With a ``seed``, the weights are drawn
+        again first, from a ``torch.Generator`` on the model's device
+        seeded with it (``build_model``'s draws, the rank's blocks);
+        without, the model keeps the weights it has."""
         params = dict(self.model.named_parameters())
         if seed is not None:
             gen = torch.Generator(device=self.model.device)
@@ -184,8 +194,10 @@ class Trainer:
             with torch.no_grad():
                 for k, p in params.items():
                     p.copy_(fresh[k])
-        self.state = {"opt": adamw_init(params, self.tc.opt),
-                      "cstate": (compress_init(params)
+        opt = adamw_init(params, self.tc.opt, self.model.par,
+                         self.model.placement)
+        self.state = {"opt": opt,
+                      "cstate": (compress_init(opt.m)
                                  if self.tc.compress_grads else None)}
         self.pipeline.load_state_dict({"step": 0})
 

@@ -1128,3 +1128,71 @@ def test_reduced_hymba_on_a_1x2_fleet_on_the_card(cuda, tmp_path):
         torch.testing.assert_close(torch.tensor(r["decode"]), dc,
                                    atol=3e-2, rtol=3e-2)
         assert abs(r["loss"] - float(loss)) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# ZeRO's gather and its transposed scatter: a 1 x 2 data fleet on the card.
+# ---------------------------------------------------------------------------
+
+ZERO_PAYLOAD = r"""
+import json
+import numpy as np
+import torch
+from repro_torch import shard
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.models import parallel
+
+shard.initialize_from_env(initialization_timeout=300)
+mesh = ProcessMesh.build(MeshShape.parse("data=2,model=1"))
+par = parallel.ParallelCfg(mesh=mesh)
+rng = np.random.default_rng(7)
+x = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32))
+g = torch.from_numpy(rng.standard_normal((2, 6, 8)).astype(np.float32))
+rank, out = mesh.coord("data"), {"device": str(mesh.device)}
+for dim in (0, 1):
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        blk = x.chunk(2, dim)[rank].to(mesh.device).requires_grad_(True)
+        y = parallel.gather_from_data(blk, par, dim, dt)
+        (gx,) = torch.autograd.grad(y, blk, g[rank].to(mesh.device, y.dtype))
+        whole = parallel.all_gather(gx, par, dim)
+        want_y = x if dt is None else x.to(dt)
+        want_g = sum(g[r].to(y.dtype).float() for r in range(2))
+        out[f"{name}.{dim}"] = [
+            y.is_cuda and whole.is_cuda and y.dtype == want_y.dtype,
+            torch.equal(y.cpu(), want_y), torch.equal(whole.cpu(), want_g)]
+print(json.dumps(out))
+"""
+
+
+def test_gather_from_data_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card: ``gather_from_data`` on CUDA blocks
+    (float32, and cast to bf16 first) gives the whole tensor, and its
+    backward's reduce-scatter the sum of the two ranks' gradients, bit for
+    bit, on the card (gloo's ``all_gather`` and ``reduce_scatter`` take
+    the CUDA tensors)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(ZERO_PAYLOAD)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                 REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                 REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r)))
+        for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    for out, _ in outs:
+        r = json.loads(out.strip().splitlines()[-1])
+        assert r.pop("device") == "cuda:0"
+        assert sorted(r) == ["bf16.0", "bf16.1", "f32.0", "f32.1"]
+        assert all(all(v) for v in r.values()), r

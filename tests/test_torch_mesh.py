@@ -173,27 +173,39 @@ def test_production_meshes_raise_on_one_process():
 
 
 def test_zero_is_refused_on_a_mesh():
-    """ZeRO shards weights or moments over ``data``; the port's
-    collectives are all-reduces, so a mesh takes stage 0 only."""
+    """ZeRO stages 1-3 build on a mesh; stage 4, and a data axis that does
+    not split a dimension the stage shards over it, raise."""
     cfg = configs.get("hymba-1.5b").reduced()
     pm = ProcessMesh.counted(_mesh(2, 2))
     for stage in (1, 2, 3):
-        with pytest.raises(NotImplementedError, match="ZeRO"):
-            make_parallel(cfg, pm, zero_stage=stage)
+        par = make_parallel(cfg, pm, zero_stage=stage)
+        assert par.zero_stage == stage and par.mesh is pm
+    with pytest.raises(ValueError, match="stages are 0-3"):
+        make_parallel(cfg, pm, zero_stage=4)
+    odd = ProcessMesh.counted(_mesh(3, 1))      # d_model 64 over 3 ranks
+    assert make_parallel(cfg, odd).zero_stage == 0
+    for stage in (1, 3):                       # the moments, the weights
+        with pytest.raises(ValueError, match="does not split into 3"):
+            make_parallel(cfg, odd, zero_stage=stage)
     assert make_parallel(cfg, None, zero_stage=3).mesh is None
 
 
 def test_dry_run_leaves_the_fit_open_under_zero_on_a_mesh():
-    """A train cell's policy takes ZeRO-3, which a placed run does not
-    hold: on a mesh the record counts stage 0's local step and gives no
-    fit verdict; on one card it does."""
+    """A train cell's policy takes ZeRO-3, and the counted step holds it:
+    on a mesh the record has a fit verdict and counts the all-gathers and
+    reduce-scatters of stage 3 over data beside the all-reduces; on one
+    card it has a verdict too, with no collective."""
     sc = ShapeCfg("t", "train", 64, 4)
     rec = dryrun.run_cell("qwen1.5-0.5b", sc, _mesh(2, 2))
     assert rec["status"] == "ok" and rec["policy"]["zero_stage"] == "3"
-    assert rec["fits"] is None and "ZeRO stage 3" in rec["fits_note"]
-    assert rec["collective_bytes"] > 0
+    assert isinstance(rec["fits"], bool) and "fits_note" not in rec
+    ops = rec["coll_ops"]
+    assert ops["data"]["all_gather"] > 0 and ops["data"]["reduce_scatter"] > 0
+    assert rec["collective_bytes"] == sum(rec["coll_mix"].values()) == sum(
+        b for o in ops.values() for b in o.values())
     card = dryrun.run_cell("qwen1.5-0.5b", sc)
     assert card["fits"] is True and "fits_note" not in card
+    assert "coll_ops" not in card
 
 
 def test_smoke_mesh_is_one_rank():
@@ -235,7 +247,8 @@ def test_counted_mesh_counts_and_refuses_real_tensors():
     y = parallel.reduce_from_model(torch.empty(4, 8, device="meta"), par)
     parallel.sum_no_grad(torch.empty(3, device="meta"), par, ("data",))
     assert y.shape == (4, 8)
-    assert parallel.TRAFFIC == {"model": [1, 128, 0.0], "data": [1, 12, 0.0]}
+    assert parallel.TRAFFIC == {"model": {"all_reduce": [1, 128, 0.0]},
+                                "data": {"all_reduce": [1, 12, 0.0]}}
     with pytest.raises(RuntimeError, match="moves no data"):
         parallel.reduce_from_model(torch.ones(2), par)
     parallel.reset_traffic()
@@ -269,8 +282,9 @@ def test_one_rank_mesh_is_the_unplaced_model(arch):
 @pytest.mark.parametrize("arch", configs.ALL_ARCHS)
 def test_local_step_on_a_counted_mesh(arch, kind):
     """Rank 0's local step of every family and kind on a 2 x 2 counted
-    mesh runs on ``meta``: its parameters are their blocks, and it
-    all-reduces over ``model`` (and, training, over ``data``)."""
+    mesh runs on ``meta``: its parameters are their blocks at the
+    policy's ZeRO stage (3 for training), and it all-reduces over
+    ``model`` (and, training, moves gradients over ``data``)."""
     cfg = configs.get(arch).reduced()
     mesh = _mesh(2, 2)
     sc = ShapeCfg("t", kind, 64, 4)
@@ -279,7 +293,8 @@ def test_local_step_on_a_counted_mesh(arch, kind):
     assert sum(p.numel() * p.element_size() for p in cell.live) \
         == sharded_size_bytes(dryrun._cast_defs(
             model_defs(cfg), dryrun.dtype_of(policy["param_dtype"])),
-            auto_rules(cfg, mesh), mesh.shape)
+            dryrun.effective_rules(cfg, mesh, int(policy["zero_stage"])),
+            mesh.shape)
     cost, _, _ = dryrun.count_cell(cell)
     assert cost["coll_mix"]["model"] > 0
     # Training sums the gradients over data; serving sums only the MoE

@@ -140,7 +140,8 @@ step = make_train_step(model, tc)
 opt = adamw_init(dict(model.named_parameters()), tc.opt)
 parallel.reset_traffic()
 opt, _, m = step(opt, None, batch)
-out["traffic"] = {a: v[:2] for a, v in sorted(parallel.TRAFFIC.items())}
+out["traffic"] = {a: {op: v[:2] for op, v in sorted(ops.items())}
+                  for a, ops in sorted(parallel.TRAFFIC.items())}
 out["step_loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
 save.update(arrays("s.", gather_params(dict(model.named_parameters()), defs,
                                        par)))
@@ -415,17 +416,21 @@ def test_sharded_checkpoint_restores_on_2x2_fleet(moe_fleet):
 
 
 def test_collective_bytes_equal_the_dry_runs(moe_fleet):
-    """The bytes the fleet's train step all-reduced over each axis equal
-    the dry run's count of rank 0's local step on a counted mesh."""
+    """The bytes the fleet's train step moved over each axis, op by op,
+    equal the dry run's count of rank 0's local step on a counted mesh
+    at the same ZeRO stage (0: all-reduces only)."""
     cfg = moe_fleet["cfg"]
     mesh = MeshShape.parse("data=2,model=2")
     sc = ShapeCfg("t", "train", 64, 8)
-    policy = dryrun.cell_policy(cfg, sc, mesh, {"remat": "none"})
+    policy = dryrun.cell_policy(cfg, sc, mesh, {"remat": "none",
+                                                "zero_stage": 0})
     assert policy["microbatches"] == 1
     cost, _, _ = dryrun.count_cell(dryrun.build_cell(cfg, sc, policy,
                                                      mesh=mesh))
-    got = {a: v[1] for a, v in moe_fleet["res"]["traffic"].items()}
-    assert got == cost["coll_mix"] and set(got) == {"data", "model"}
+    got = {a: {op: v[1] for op, v in ops.items()}
+           for a, ops in moe_fleet["res"]["traffic"].items()}
+    assert got == cost["coll_ops"] and set(got) == {"data", "model"}
+    assert all(set(ops) == {"all_reduce"} for ops in got.values())
 
 
 # ---------------------------------------------------------------------------
