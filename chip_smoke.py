@@ -210,15 +210,16 @@ non-zero exit code if it fails:
     (a) reduced qwen3-moe's loss and gradients on a ``data=2, model=2``
     fleet on the card against the same fleet on the CPU (every rank the
     same loss; loss 5e-3, each leaf 3e-2); (b) qwen3-moe-30b-a3b at full
-    width and 8 layers over ``model=4`` (experts, heads and vocabulary
+    width cut to 4 layers over ``model=4`` (experts, heads and vocabulary
     split): a prefill of 2 x 1024 tokens and 16 decode steps, the logits
     within 3e-2 of one card's on the same weights, and, as in phase 17,
     rank 0's router inputs of every call through one card's router: the
-    ids equal but at ties within 1e-6; (c) hymba-1.5b at full width and
-    depth over ``model=2`` (the SSM, MLP and vocabulary split, the 25 heads
-    replicated): one loss and gradient and one train step at seq 1024 x 2
-    through both trainable entries, against one card's (loss 3e-2, each
-    gradient leaf 5e-2, 64 launches of each kernel a rank), and a float32
+    ids equal but at ties within 1e-6; (c) hymba-1.5b at full width cut
+    to 8 of its 32 layers over ``model=2`` (the SSM, MLP and vocabulary
+    split, the 25 heads replicated): one loss and gradient and one train
+    step at seq 1024 x 2 through both trainable entries, against one
+    card's (loss 3e-2, each gradient leaf 5e-2, 16 launches of each
+    kernel a rank), and a float32
     witness of the loss and gradient on both sides (mesh vs one card
     5e-3; each bf16 run's distance to it, the mesh's within twice one
     card's plus 5e-3); each
@@ -232,13 +233,30 @@ non-zero exit code if it fails:
     of stage 0's (each leaf's relative Frobenius distance:
     ``global_norm`` sums in another order), each rank's parameter,
     gradient and moment bytes and the step's traffic by axis and op
-    printed; (b) hymba-1.5b at full width cut to 8 layers over ``data=2``,
+    printed; (b) hymba-1.5b at full width cut to 4 layers over ``data=2``,
     seq 1024 x 2 (one sequence a rank), remat full, at stages 0 and 3,
     two steps each: the first step's loss at stage 3 bit for bit stage
     0's, stage 3's state (parameters, gradients, moments) a rank under
-    0.6 of stage 0's, 16 launches of each model kernel a rank a step; the
+    0.6 of stage 0's, 8 launches of each model kernel a rank a step; the
     peak memory, state bytes, a warm step's wall and its collective
-    seconds and bytes by op printed.
+    seconds and bytes by op printed;
+23. levers — the last one-card mesh levers and the engine over a mesh,
+    on 4 gloo ranks sharing the card (``--lever-worker``, one launch),
+    hymba-1.5b at full width cut to 8 layers over ``data=2, model=2``:
+    (a) one loss and backward at seq 1024 x 2 (a sequence a data rank)
+    under remat ``full``, ``tp_out`` and ``tp_out`` + ``seq_shard``, on
+    the same weights and batch: the losses bit for bit ``full``'s, every
+    gradient leaf too (a leaf that differs is printed and held to the
+    CPU fleet's 2e-2), fewer model-axis all-reduces under ``tp_out``, 16
+    launches of each model kernel a run; each run's traffic by op, peak
+    memory and wall printed; (b) the serve engine over the mesh, 8
+    requests of 512-1024 tokens and 16 new, 4 lanes (2 a data rank),
+    plainly and under ``kv_seq_shard`` (5 kv heads on 2 ranks: each rank
+    holds half of every lane's ring), against one card's engine at the
+    same 8 layers and weights: greedy tokens equal, a flip allowed only
+    where one card's top-2 margin is under 2e-2; KV bytes a rank (about
+    half under the lever), decode ms a tick and collective bytes a tick
+    by op printed.
 
 Every kernel bound comes from the kernel module's own ``cost`` formula at
 the card's rates (``kernels.cost``).  A line gives each phase's seconds.
@@ -248,7 +266,8 @@ the main path's, the dry run's and the probe's; ``gate_quantile``'s the
 online path's and the probe's; ``flash_attention``'s the serve path's,
 the families', the train path's, the dry run's and the mesh ranks';
 ``ssd_scan``'s the serve path's, the train path's, the dry run's and the
-mesh ranks'; both model kernels' also the ZeRO ranks'), the card's name
+mesh ranks'; both model kernels' also the ZeRO and lever ranks'), the
+card's name
 and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -2143,8 +2162,8 @@ def serve_run(dev, cfg, lens, rng, per_prefill: dict, note: str) -> dict:
     plain_prefill, plain_decode = model.prefill, model.decode
 
     def checked(fn):
-        def call(batch):
-            logits, caches = fn(batch)
+        def call(batch, **kw):
+            logits, caches = fn(batch, **kw)
             bad.add_((~torch.isfinite(logits)).sum())
             return logits, caches
         return call
@@ -3743,12 +3762,14 @@ MESH_TIMEOUT_S = 600
 MESH_STEP_MESH = "data=2,model=2"   # (a) reduced qwen3-moe, 4 ranks
 MESH_STEP_TOL = 5e-3            # (a) card fleet vs CPU fleet: loss, abs
 MESH_STEP_GRAD_TOL = 3e-2       # (a) ... each gradient leaf, rel. norm
-MESH_SERVE_MESH = "data=1,model=4"  # (b) qwen3-moe-30b-a3b, 8 layers
+MESH_SERVE_MESH = "data=1,model=4"  # (b) qwen3-moe-30b-a3b
+MESH_SERVE_LAYERS = 4           # (b) of 48, for the script's time
 MESH_SERVE_LANES = 2
 MESH_SERVE_PROMPT = 1024
 MESH_SERVE_DECODE = 16
 MESH_SERVE_TOL = 3e-2           # (b) logits vs one card, atol = rtol
-MESH_TRAIN_MESH = "data=1,model=2"  # (c) hymba-1.5b, full width and depth
+MESH_TRAIN_MESH = "data=1,model=2"  # (c) hymba-1.5b, full width
+MESH_TRAIN_LAYERS = 8           # (c) of 32, for the script's time
 MESH_TRAIN_SEQ = 1024           # (c) phase 18's 4096 cut: see mesh_train
 MESH_TRAIN_BATCH = 2
 MESH_TRAIN_TOL = 3e-2           # (c) loss vs one card, relative
@@ -3835,7 +3856,7 @@ def mesh_worker(mode: str, work: str, device: str) -> int:
                      **{k: g.float().cpu().numpy() for k, g in grads.items()})
     elif mode == "serve":
         cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"),
-                                  n_layers=FAMILY_LAYERS)
+                                  n_layers=MESH_SERVE_LAYERS)
         par = make_parallel(cfg, mesh)
         model = serial_build(mesh, lambda: build_model(cfg, dev, seed=0,
                                                        par=par))
@@ -3848,7 +3869,8 @@ def mesh_worker(mode: str, work: str, device: str) -> int:
             np.save(os.path.join(work, "serve_mesh.npy"), logits)
             torch.save(routes, os.path.join(work, "serve_routes.pt"))
     else:
-        cfg = configs.get("hymba-1.5b")
+        cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                                  n_layers=MESH_TRAIN_LAYERS)
         par = make_parallel(cfg, mesh, remat="full")
         model = serial_build(mesh, lambda: build_model(cfg, dev, seed=0,
                                                        par=par))
@@ -3881,7 +3903,7 @@ def mesh_worker(mode: str, work: str, device: str) -> int:
         out["loss_s"] = time.perf_counter() - t0
         out["loss"] = float(loss)
         out["launches"] = dict(LAUNCHES)
-        out["traffic"] = {a: list(v) for a, v in parallel.TRAFFIC.items()}
+        out["traffic"] = parallel.traffic_table(slice(0, 3))
         out["grad_sq"] = grad_sq(grads, ("grads", "grads32"))
         del grads
         loss, grads = f32_loss(model, batch)      # the float32 witness
@@ -3979,7 +4001,7 @@ def mesh_serve(model, toks, sync):
     walls = {"prefill_s": prefill_s, "decode_s": decode_s,
              "peak": torch.cuda.max_memory_allocated(dev),
              "launches": dict(LAUNCHES),
-             "traffic": {a: list(v) for a, v in parallel.TRAFFIC.items()}}
+             "traffic": parallel.traffic_table(slice(0, 3))}
     routes = [(x.cpu(), ids.cpu()) for x, ids in routes]
     return torch.stack(steps).cpu().numpy(), routes, walls
 
@@ -4024,8 +4046,8 @@ def mesh_step(work: str) -> dict:
 
 
 def mesh_serve_phase(dev, work: str) -> dict:
-    """(b) qwen3-moe-30b-a3b at full width cut to FAMILY_LAYERS layers
-    (PR 21's cut) over ``model=4``: a prefill of 2 prompts of 1024 tokens
+    """(b) qwen3-moe-30b-a3b at full width cut to MESH_SERVE_LAYERS
+    layers (for the script's time) over ``model=4``: a prefill of 2 prompts of 1024 tokens
     and 16 decode steps on one card, then on 4 ranks holding a quarter of
     its experts, heads and vocabulary each; logits within MESH_SERVE_TOL.
     The router is replicated: as in phase 17, rank 0's router inputs of
@@ -4042,7 +4064,7 @@ def mesh_serve_phase(dev, work: str) -> dict:
     from repro_torch.models.api import build_model
 
     cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b"),
-                              n_layers=FAMILY_LAYERS)
+                              n_layers=MESH_SERVE_LAYERS)
     model = build_model(cfg, dev, seed=0)
     toks = torch.from_numpy(mesh_tokens(
         cfg, 24, (MESH_SERVE_LANES, MESH_SERVE_PROMPT + MESH_SERVE_DECODE)
@@ -4098,7 +4120,8 @@ def mesh_serve_phase(dev, work: str) -> dict:
 
 
 def mesh_train_phase(dev, work: str) -> dict:
-    """(c) hymba-1.5b at full width and depth over ``model=2`` (its 25
+    """(c) hymba-1.5b at full width, MESH_TRAIN_LAYERS of its 32 layers
+    (cut for the script's time), over ``model=2`` (its 25
     attention heads replicated, the SSM, MLP and vocabulary split): one
     loss and gradient, then one train step, through
     ``flash_attention_trainable`` and ``ssd_scan_trainable`` on each
@@ -4120,6 +4143,8 @@ def mesh_train_phase(dev, work: str) -> dict:
     step (forward, remat recompute, backward), through gloo's host
     staging at well under 1 GB/s, which at 4096 costs tens of seconds a
     step."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import configs
@@ -4135,7 +4160,8 @@ def mesh_train_phase(dev, work: str) -> dict:
         for k, g in grads.items():
             np.save(os.path.join(work, folder, k + ".npy"), g.cpu().numpy())
 
-    cfg = configs.get("hymba-1.5b")
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                              n_layers=MESH_TRAIN_LAYERS)
     model = build_model(cfg, dev, seed=0, par=ParallelCfg(remat="full"))
     batch = materialize(cfg, "train_4k", seq=MESH_TRAIN_SEQ,
                         batch=MESH_TRAIN_BATCH, device=dev)
@@ -4190,8 +4216,8 @@ def mesh_train_phase(dev, work: str) -> dict:
     bf16, f32, mesh_w = rel("grads"), rel("f32"), rel("grads32")
     top = sorted(bf16, key=bf16.get, reverse=True)[:3]
     worst32 = max(f32, key=f32.get)
-    print(f"mesh (c): hymba-1.5b at full width and depth over "
-          f"{MESH_TRAIN_MESH} (2 gloo ranks on one card), seq "
+    print(f"mesh (c): hymba-1.5b at full width, {MESH_TRAIN_LAYERS} "
+          f"layers, over {MESH_TRAIN_MESH} (2 gloo ranks on one card), seq "
           f"{MESH_TRAIN_SEQ} x {MESH_TRAIN_BATCH}, remat full: loss "
           f"{[round(r['loss'], 6) for r in ranks.values()]} vs one card "
           f"{single['loss']:.6f}; step loss / grad norm "
@@ -4273,7 +4299,7 @@ ZERO_STEP_RTOL = 1e-6               # (a) parameters after a step vs stage
 # 0's, each leaf's relative Frobenius distance (the update's scale follows
 # the clipping norm, whose squares each stage sums in its own order)
 ZERO_TRAIN_MESH = "data=2,model=1"  # (b) hymba-1.5b, full width
-ZERO_TRAIN_LAYERS = 8               # (b) of 32, for time
+ZERO_TRAIN_LAYERS = 4               # (b) of 32, for time
 ZERO_TRAIN_STAGES = (0, 3)          # stage 1 (its state between them)
 # left out for the script's time; (a) holds it bit for bit
 ZERO_TRAIN_SEQ = 1024
@@ -4538,6 +4564,305 @@ def zero_path(dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# Phase 23: the last one-card mesh levers (remat tp_out, seq_shard,
+# kv_seq_shard) and the serve engine over a placed mesh.  Four gloo ranks
+# sharing the card (this script spawned once as --lever-worker).
+LEVER_MESH = "data=2,model=2"
+LEVER_LAYERS = 8                    # hymba-1.5b's 32 cut, for time
+LEVER_SEQ = 1024
+LEVER_BATCH = 2                     # one sequence a data rank
+LEVER_RUNS = (("full", False), ("tp_out", False), ("tp_out", True))
+LEVER_GRAD_TOL = 2e-2               # a leaf not bit for bit: the CPU
+# fleet's tolerance (tests/test_torch_mesh_fleet.py), relative Frobenius
+# of each rank's block
+LEVER_REQUESTS = 8
+LEVER_PROMPTS = (512, 1024)         # prompt lengths drawn in [lo, hi]
+LEVER_NEW = 16
+LEVER_SLOTS = 4
+LEVER_MAX_LEN = LEVER_PROMPTS[1] + LEVER_NEW + 8    # even: the ring splits
+LOGIT_TOL = 2e-2                    # a token flip only at a top-2 margin
+# under this in one card's logits
+LEVER_KV_HALF = 0.55                # KV bytes a rank, lever over plain
+
+
+def lever_requests(cfg):
+    """The serve run's requests: LEVER_REQUESTS prompts of
+    LEVER_PROMPTS lengths from ``np.random.default_rng(26)``."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(26)
+    lens = rng.integers(LEVER_PROMPTS[0], LEVER_PROMPTS[1] + 1,
+                        LEVER_REQUESTS)
+    return [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=LEVER_NEW) for i, n in enumerate(lens)]
+
+
+def lever_serve(model, sync) -> dict:
+    """The engine's run of :func:`lever_requests` on ``model`` (its mesh
+    and levers): the tokens, its pool's KV bytes, the decode's warm ms a
+    tick and, over a mesh, the ticks' collective bytes (the decode and
+    the logits' gather; the prefills' taken out) a tick by axis and op."""
+    from repro_torch.models import parallel
+    from repro_torch.serve import ServeConfig, ServeEngine
+    eng = ServeEngine(model, ServeConfig(batch_slots=LEVER_SLOTS,
+                                         max_len=LEVER_MAX_LEN),
+                      device=model.device)
+    prefill, pre = model.prefill, {}
+
+    def counted(*args, **kwargs):    # the prefills' traffic, to take out
+        before = parallel.traffic_table()
+        out = prefill(*args, **kwargs)
+        for a, ops in parallel.traffic_table().items():
+            for op, b in ops.items():
+                rec = pre.setdefault(a, {})
+                rec[op] = rec.get(op, 0) + b - before.get(a, {}).get(op, 0)
+        return out
+    model.prefill = counted
+    try:
+        parallel.reset_traffic()
+        sync()
+        t0 = time.perf_counter()
+        done = eng.run(lever_requests(model.cfg))
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill
+    snap = eng.metrics.snapshot()
+    ticks = snap["ticks"]
+    seen = {a: {op: b - pre.get(a, {}).get(op, 0) for op, b in ops.items()}
+            for a, ops in parallel.traffic_table().items()}
+    return {"tokens": {str(r.rid): r.out_tokens for r in done},
+            "done": sum(r.done for r in done), "ticks": ticks,
+            "wall_s": wall,
+            "decode_ms": 1e3 * snap["decode_wall_s_warm"]["mean"],
+            "kv_bytes": sum(eng.caches[k].numel() * eng.caches[k]
+                            .element_size() for k in ("k_cache",
+                                                      "v_cache")),
+            "kv_shape": list(eng.caches["k_cache"].shape),
+            "per_tick": {a: {op: round(b / ticks) for op, b in
+                             ops.items()} for a, ops in seen.items()}}
+
+
+def lever_worker(work: str, device: str) -> int:
+    """One rank of phase 23 (spawned by :func:`lever_path` with the
+    ``REPRO_*`` env): (a) the loss and backward under each of LEVER_RUNS,
+    (b) the engine plainly and under ``kv_seq_shard``; its results as the
+    last line."""
+    sys.path.insert(0, SRC)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, shard
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import batch_shard, make_parallel
+    from repro_torch.models import parallel
+    from repro_torch.models.api import Model, build_model
+    from repro_torch.models.common import materialize
+
+    shard.initialize_from_env(initialization_timeout=MESH_TIMEOUT_S)
+    if device == "cpu":
+        torch.set_num_threads(2)
+    mesh = ProcessMesh.build(MeshShape.parse(LEVER_MESH), device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                              n_layers=LEVER_LAYERS)
+    par = make_parallel(cfg, mesh, remat="full")
+    base = build_model(cfg, dev, seed=0, par=par)
+    batch = batch_shard(materialize(cfg, "train_4k", seq=LEVER_SEQ,
+                                    batch=LEVER_BATCH, device=dev), cfg, par)
+    out = {"rank": mesh.rank, "device": str(dev), "train": {},
+           "launches": {}}
+    parallel.TIME_COLLECTIVES = True
+    first = None
+    for remat, seq in LEVER_RUNS:
+        par = make_parallel(cfg, mesh, remat=remat, seq_shard=seq,
+                            seq=LEVER_SEQ)
+        model = Model(cfg, base.tree(), par)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        parallel.reset_traffic()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = model.loss(batch)
+        sync()
+        r = {"wall_s": time.perf_counter() - t0,
+             "loss": float(parallel.sum_no_grad(loss, par, par.batch_axes)),
+             "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+             "traffic": parallel.traffic_table(slice(0, 3)),
+             "launches": dict(LAUNCHES)}
+        for k, n in LAUNCHES.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        grads = {k: g.cpu() for k, g in grads.items()}  # off the card: the
+        if first is None:                               # next run's peak
+            first = grads
+        else:       # each rank's blocks against full's: bits, else rel.
+            r["differ"] = {
+                k: float(torch.linalg.vector_norm(g - first[k])
+                         / max(float(torch.linalg.vector_norm(first[k])),
+                               1e-30))
+                for k, g in grads.items() if not torch.equal(g, first[k])}
+        out["train"][f"{remat}{'+seq_shard' if seq else ''}"] = r
+        del model, grads
+    del first, base
+    out["serve"] = {}
+    for lever in (False, True):
+        par = make_parallel(cfg, mesh, kv_seq_shard=lever)
+        model = build_model(cfg, dev, seed=0, par=par)
+        reset_launches()
+        out["serve"]["kv_seq_shard" if lever else "plain"] = \
+            lever_serve(model, sync)
+        for k, n in LAUNCHES.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        del model
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def lever_flips(got: dict, want: dict, cfg, model) -> list:
+    """Each request whose tokens differ from one card's: its first
+    differing place and one card's top-2 margin there (the prefill of the
+    prompt and the tokens the two share, on one card)."""
+    import numpy as np
+    import torch
+    prompts = {str(r.rid): r.prompt for r in lever_requests(cfg)}
+    flips = []
+    for rid, toks in want.items():
+        mine = got[rid]
+        if mine == toks:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(mine, toks)) if a != b)
+        ids = np.concatenate([prompts[rid], np.asarray(toks[:j], np.int32)])
+        logits, _ = model.prefill({"tokens": torch.as_tensor(
+            ids[None], dtype=torch.int64, device=model.device)})
+        top = torch.topk(logits[0, :cfg.vocab_size].float(), 2).values
+        flips.append({"request": rid, "at": j,
+                      "margin": float(top[0] - top[1])})
+    return flips
+
+
+def lever_path(dev) -> dict:
+    """Phase 23: one card's engine on the 8-layer hymba, then the four
+    ranks' (a) levers and (b) engines; launches are the ranks' own."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+
+    free_card()               # the ranks share the card with this process
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                              n_layers=LEVER_LAYERS)
+    model = build_model(cfg, dev, seed=0)
+    one = lever_serve(model, lambda: torch.cuda.synchronize(dev))
+    check(one["done"] == LEVER_REQUESTS, f"levers: one card served "
+          f"{one['done']} of {LEVER_REQUESTS} requests")
+    with tempfile.TemporaryDirectory() as work:
+        ranks = spawn_ranks(4, ["--lever-worker", work, "cuda"],
+                            MESH_TIMEOUT_S, "levers")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    # (a) the loss and gradients under each lever against full's
+    n = 2 * LEVER_LAYERS          # forward and remat recompute
+    table = {}
+    for key in r0["train"]:
+        runs = [r["train"][key] for r in ranks.values()]
+        for r in runs:
+            check(r["loss"] == runs[0]["loss"], f"levers (a): {key}: the "
+                  "ranks' losses differ")
+            got = [r["launches"].get(k, 0)
+                   for k in ("flash_attention", "ssd_scan")]
+            check(got == [n, n], f"levers (a): {key} launched "
+                  f"{r['launches']}, expected {n} of each")
+        table[key] = {
+            "loss": runs[0]["loss"],
+            "model traffic [calls, bytes, s] rank 0":
+                runs[0]["traffic"].get("model"),
+            "peak GiB": [round(r["peak"] / 2**30, 3) for r in runs],
+            "wall s": [round(r["wall_s"], 3) for r in runs],
+            "leaves not bit for bit (worst rank)": {
+                k: max(r.get("differ", {}).get(k, 0.0) for r in runs)
+                for k in sorted({k for r in runs
+                                 for k in r.get("differ", {})})}}
+    full = table["full"]["loss"]
+    for key, t in table.items():
+        check(t["loss"] == full, f"levers (a): {key}'s loss {t['loss']!r} "
+              f"is not full's {full!r}")
+        worst = max(t["leaves not bit for bit (worst rank)"].values(),
+                    default=0.0)
+        check(worst <= LEVER_GRAD_TOL, f"levers (a): {key}'s gradients "
+              f"{t['leaves not bit for bit (worst rank)']} are more than "
+              f"{LEVER_GRAD_TOL} from full's")
+    ar = {k: r0["train"][k]["traffic"]["model"]["all_reduce"][0]
+          for k in r0["train"]}
+    check(ar["tp_out"] < ar["full"], f"levers (a): tp_out's model-axis "
+          f"all-reduces {ar['tp_out']} are not fewer than full's "
+          f"{ar['full']}")
+    seq = r0["train"]["tp_out+seq_shard"]["traffic"]["model"]
+    check(seq.get("all_gather", [0])[0] > 0
+          and seq.get("reduce_scatter", [0])[0] > 0,
+          f"levers (a): seq_shard moved no sequence blocks: {seq}")
+    print(f"levers (a): hymba-1.5b at full width, {LEVER_LAYERS} layers, "
+          f"over {LEVER_MESH} (4 gloo ranks on one card), seq {LEVER_SEQ} "
+          f"x {LEVER_BATCH}, one loss and backward each: model-axis "
+          f"all-reduces a rank {json.dumps(ar)}; {json.dumps(table)}",
+          flush=True)
+    # (b) the engine over the mesh against one card's
+    cards = {}
+    for key in ("plain", "kv_seq_shard"):
+        runs = [r["serve"][key] for r in ranks.values()]
+        check(all(r["tokens"] == runs[0]["tokens"] for r in runs),
+              f"levers (b): {key}: the ranks' tokens differ")
+        check(runs[0]["done"] == LEVER_REQUESTS, f"levers (b): {key} "
+              f"served {runs[0]['done']} of {LEVER_REQUESTS} requests")
+        flips = lever_flips(runs[0]["tokens"], one["tokens"], cfg, model)
+        for f in flips:
+            check(f["margin"] < LOGIT_TOL, f"levers (b): {key}: request "
+                  f"{f['request']} differs from one card's at token "
+                  f"{f['at']}, where one card's top-2 margin is "
+                  f"{f['margin']:.4g} (>= {LOGIT_TOL})")
+        cards[key] = {"flips": flips,
+                      "KV bytes a rank": [r["kv_bytes"] for r in runs],
+                      "KV shape rank 0": runs[0]["kv_shape"],
+                      "decode ms a tick (warm mean)": [
+                          round(r["decode_ms"], 2) for r in runs],
+                      "ticks": runs[0]["ticks"],
+                      "bytes a tick by axis and op rank 0":
+                          runs[0]["per_tick"]}
+    half = max(a / b for a, b in zip(cards["kv_seq_shard"]["KV bytes a rank"],
+                                      cards["plain"]["KV bytes a rank"]))
+    check(half <= LEVER_KV_HALF, f"levers (b): KV bytes a rank under "
+          f"kv_seq_shard are {half:.3f} of the plain pool's")
+    del model
+    launches = {}
+    for r in ranks.values():
+        for k, c in r["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    seconds = time.perf_counter() - t0
+    print(f"levers (b): the engine over {LEVER_MESH}, {LEVER_REQUESTS} "
+          f"requests of {LEVER_PROMPTS[0]}-{LEVER_PROMPTS[1]} tokens, "
+          f"{LEVER_NEW} new, {LEVER_SLOTS} lanes, max_len {LEVER_MAX_LEN}: "
+          f"tokens equal one card's but for the flips listed; KV bytes a "
+          f"rank, lever over plain, {half:.4f}; one card's decode "
+          f"{one['decode_ms']:.2f} ms a tick, KV bytes {one['kv_bytes']}; "
+          f"{json.dumps(cards)}; ranks' wall {wall:.1f} s with the "
+          "processes' start", flush=True)
+    print(f"levers: phase 23 in {seconds:.1f} s, launches on the ranks "
+          f"{launches}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4627,12 +4952,15 @@ def main() -> int:
     lap("mesh")
     zero = zero_path(dev)
     lap("zero")
+    levers = lever_path(dev)
+    lap("levers")
     for kern, name in zip(kernels, ("schedule_eval", "gate_quantile",
                                     "flash_attention", "ssd_scan")):
         kern["launches"] += (dry["launches"].get(name, 0)
                              + probe["launches"].get(name, 0)
                              + mesh["launches"].get(name, 0)
-                             + zero["launches"].get(name, 0))
+                             + zero["launches"].get(name, 0)
+                             + levers["launches"].get(name, 0))
     print(f"phase seconds ({sum(laps.values()):.1f} in all): "
           + json.dumps(laps), flush=True)
 
@@ -4640,7 +4968,7 @@ def main() -> int:
              "forecast": forecast, "structure": structure, "stream": stream,
              "learn": learn, "cluster": cluster, "shard": sharded,
              "families": family, "train": train, "dryrun": dry,
-             "probe": probe, "mesh": mesh, "zero": zero}
+             "probe": probe, "mesh": mesh, "zero": zero, "levers": levers}
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",
@@ -4665,6 +4993,8 @@ if __name__ == "__main__":
             sys.exit(mesh_worker(*sys.argv[2:5]))
         if sys.argv[1:2] == ["--zero-worker"]:
             sys.exit(zero_worker(*sys.argv[2:5]))
+        if sys.argv[1:2] == ["--lever-worker"]:
+            sys.exit(lever_worker(*sys.argv[2:4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -21,10 +21,12 @@ and dtypes only, and the kernel entries return their outputs' shapes
 there.  The same ``build_cell`` runs on a real device
 (``device="cuda"``): that is how ``chip_smoke.py`` holds the counts to a
 step on the card.  On a mesh of more than one device the counted program
-is rank 0's local step at the policy's ZeRO stage: its blocks of the
+is rank 0's local step at the policy's ZeRO stage and sequence levers
+(``seq_shard``, ``kv_seq_shard``): its blocks of the
 parameters (``params.param_local_shapes`` under the stage's rules), of
 the AdamW moments (stage 3's blocks at stages 1-3) and of the batch
-(``sharding.batch_shard``) under a counted mesh (``ProcessMesh.counted``),
+(``sharding.batch_shard``, a KV window's block under ``kv_seq_shard``)
+under a counted mesh (``ProcessMesh.counted``),
 on which ``models.parallel``'s collectives count the bytes they would
 move and move none.  The record then holds ``collective_bytes``, per
 mesh axis in ``coll_mix`` and per axis and op in ``coll_ops``, and
@@ -90,10 +92,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 # The policy keys the port reads (``build_cell``, ``run_cell`` and
 # ``roofline.analytic_hbm_bytes``).  The reference's others (``kind``,
-# ``scan_layers``, ``seq_shard``, ``moe_ep``, ``ar_barrier``) are recorded
-# at its values and cannot be overridden: nothing here would act on them.
+# ``scan_layers``, ``moe_ep``, ``ar_barrier``) are recorded at its values
+# and cannot be overridden: nothing here would act on them.
 OVERRIDABLE = ("param_dtype", "moment_dtype", "zero_stage", "microbatches",
-               "remat", "attn_block", "kv_seq_shard")
+               "remat", "attn_block", "seq_shard", "kv_seq_shard")
 
 
 def check_overrides(overrides: dict) -> None:
@@ -188,6 +190,11 @@ def _cast_defs(defs, dtype: torch.dtype):
             d, dtype=dtype if d.dtype.is_floating_point else d.dtype), defs)
 
 
+def _flag(v) -> bool:
+    """A policy's boolean (a bool, or its string in a recorded policy)."""
+    return v in (True, "True")
+
+
 def _kind_shape(kind: str) -> str:
     return next(n for n, s in SHAPES.items() if s.kind == kind)
 
@@ -212,14 +219,16 @@ def build_cell(cfg: ArchConfig, shape: str | ShapeCfg, policy: dict,
     if micro > 1:
         sc = dataclasses.replace(sc, batch=sc.batch // micro)
     defs = _cast_defs(model_defs(cfg), dtype_of(policy["param_dtype"]))
-    par = make_parallel(cfg, None, remat=str(policy["remat"]),
-                        attn_block=int(policy["attn_block"]))
+    levers = dict(remat=str(policy["remat"]),
+                  attn_block=int(policy["attn_block"]),
+                  seq_shard=_flag(policy["seq_shard"]),
+                  kv_seq_shard=_flag(policy["kv_seq_shard"]))
+    par = make_parallel(cfg, None, **levers)
     if mesh is not None and mesh.size > 1:
         if dev.type != "meta":
             raise ValueError("a mesh's local step is counted on meta only")
         par = make_parallel(cfg, ProcessMesh.counted(mesh),
-                            zero_stage=int(policy["zero_stage"]),
-                            remat=par.remat, attn_block=par.attn_block)
+                            zero_stage=int(policy["zero_stage"]), **levers)
         rules = par.effective_rules()
         defs = tree_map_defs(lambda d: dataclasses.replace(
             d, shape=local_shape(d, rules, par.mesh)), defs)

@@ -9,6 +9,15 @@ vision-stub model's prompt follows the engine's zero patch embeddings
 (the KV horizon makes room for them).  The counterpart of
 ``repro.launch.serve``, whose ``--reduced`` cannot be turned off (ROADMAP
 Queue 3), and of the reference's ``examples/serve_lm.py``.
+
+Over a mesh: under a fleet (``python -m tests.harness --processes P --
+python -m repro_torch.launch.serve --mesh data=D,model=M ...``, D x M = P
+ranks on gloo), each rank holds its shard of the model and its data
+block of the lane pool (``serve.engine``); ``--kv-seq-shard`` cuts each
+lane's KV window over ``model`` where the kv heads do not divide it.  The
+reference's docstring names its production mesh, which its parser never
+reaches.  Rank ``r`` runs on ``cuda:(r % device_count)`` (or
+``--device``); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -18,8 +27,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, shard
 from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.launch.sharding import make_parallel
 from repro_torch.models.api import build_model
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 from repro_torch.serve.engine import frontend_tokens
@@ -35,13 +46,28 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=False)
-    ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--device", default=None,
+                    help=f"default {DEFAULT_DEVICE}; on a mesh "
+                         "cuda:(rank % device_count)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve over a mesh of the fleet's ranks, e.g. "
+                         "data=2,model=2")
+    ap.add_argument("--kv-seq-shard", action="store_true",
+                    help="cut the KV window over model where the kv heads "
+                         "do not divide it")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, args.device)
+    mesh = None
+    if args.mesh:
+        shard.initialize_from_env()
+        mesh = ProcessMesh.build(MeshShape.parse(args.mesh), args.device)
+    par = make_parallel(cfg, mesh, kv_seq_shard=args.kv_seq_shard)
+    device = mesh.device if mesh is not None else (args.device
+                                                  or DEFAULT_DEVICE)
+    model = build_model(cfg, device, par=par)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
@@ -53,17 +79,24 @@ def main(argv: list[str] | None = None) -> list[Request]:
                                   max_len=frontend_tokens(cfg)
                                   + args.prompt_len + args.max_new + 8,
                                   temperature=args.temperature),
-                      device=args.device)
+                      device=device)
     t0 = time.perf_counter()
     done = eng.run(reqs)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out_tokens) for r in done)
-    print(f"arch={cfg.name} on {model.device}: served {len(done)} requests, "
-          f"{n_tok} tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s)")
-    for r in done[:4]:
-        print(f"  req {r.rid}: {r.out_tokens[:10]}")
+    if mesh is None or mesh.rank == 0:
+        where = f" mesh={mesh.shape}" if mesh is not None else ""
+        print(f"arch={cfg.name} on {model.device}{where}: served "
+              f"{len(done)} requests, {n_tok} tokens in {dt:.1f}s "
+              f"({n_tok / dt:.1f} tok/s)")
+        for r in done[:4]:
+            print(f"  req {r.rid}: {r.out_tokens[:10]}")
+    if mesh is not None:        # the ranks leave the groups together
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
     return done
 
 

@@ -15,20 +15,24 @@ dims over ``"model"`` when divisible, scalars replicated.
 ``make_parallel`` is the reference's, with a :class:`ProcessMesh`, at
 ZeRO stages 0-3 in the reference's meaning (1: the AdamW moments sharded
 over the data axes by stage 3's rules; 2: also the expert bank's
-``expert_embed``; 3: every weight's ``embed``).
+``expert_embed``; 3: every weight's ``embed``), and the sequence levers: ``seq_shard`` (the residual
+stream's sequence over ``model``, ``act_seq="model"``) and
+``kv_seq_shard`` (a decode KV cache's window over ``model`` where its kv
+heads do not divide it; ``batch_pspecs(kv_seq_shard=True)`` gives the
+reference's specs).
 :func:`batch_shard` is the counterpart of ``batch_shardings``: where the
 reference puts a global batch on the mesh under ``NamedSharding``s, it
 cuts this rank's block of every key.  Its caches are the blocks the
 model's layers hold: a KV cache the kv heads this rank's q heads read
 (``batch_pspecs``' kv-head block when kv heads shard, the GQA slice when
-only q heads do), an SSM state its head block, a conv state the rank's
-``ssm_inner`` channels with the replicated B/C channels (``batch_pspecs``
-replicates it: GSPMD would gather the new column each step, and the port
-gathers nothing).  Not ported: the sequence sharding switches
-(``seq_shard``, ``kv_seq_shard``), which nothing in the port sets, and
-``moe_ep=False``: experts sharded over ``model`` always take the
-expert-parallel dispatch (the reference's other branch is GSPMD's
-sharding of the single-device dispatch over ``model``).
+only q heads do), or under ``kv_seq_shard`` its block of the window's
+slots for every kv head; an SSM state its head block, a conv state the
+rank's ``ssm_inner`` channels with the replicated B/C channels
+(``batch_pspecs`` replicates it: GSPMD would gather the new column each
+step, and the port gathers nothing).  Not ported: ``moe_ep=False``:
+experts sharded over ``model`` always take the expert-parallel dispatch
+(the reference's other branch is GSPMD's sharding of the single-device
+dispatch over ``model``).
 """
 from __future__ import annotations
 
@@ -49,8 +53,8 @@ def _div(n: int, size: int) -> bool:
     return n > 0 and n % size == 0
 
 
-def auto_rules(cfg: ArchConfig, mesh: MeshShape, zero_stage: int = 0
-               ) -> ShardingRules:
+def auto_rules(cfg: ArchConfig, mesh: MeshShape, zero_stage: int = 0,
+               seq_shard: bool = False) -> ShardingRules:
     msize = mesh.shape.get("model", 1)
     data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     updates: dict = {}
@@ -70,6 +74,8 @@ def auto_rules(cfg: ArchConfig, mesh: MeshShape, zero_stage: int = 0
         updates["expert_embed"] = data_axes
     if zero_stage >= 3:            # stage 3: shard every weight's embed dim
         updates["embed"] = data_axes
+    if seq_shard:
+        updates["act_seq"] = "model"
     return DEFAULT_RULES.replace(**updates)
 
 
@@ -87,20 +93,28 @@ def effective_rules(cfg: ArchConfig, mesh: MeshShape | None,
 
 def make_parallel(cfg: ArchConfig, mesh: ProcessMesh | None, *,
                   zero_stage: int = 0, remat: str = "full",
-                  attn_block: int = 2048) -> ParallelCfg:
+                  attn_block: int = 2048, seq_shard: bool = False,
+                  kv_seq_shard: bool = False,
+                  seq: int | None = None) -> ParallelCfg:
     """The ``ParallelCfg`` of ``cfg`` on ``mesh`` (None: one card) at ZeRO
-    ``zero_stage`` (0-3): the rules ``auto_rules`` adapts to the arch.
-    Raises a ``ValueError`` for another stage, and where the data axes do
+    ``zero_stage`` (0-3): the rules ``auto_rules`` adapts to the arch,
+    with the sequence levers ``seq_shard`` and ``kv_seq_shard``.
+    Raises a ``ValueError`` for another stage, where the data axes do
     not split a dimension that the stage shards over them (the model's
-    blocks, or the moments')."""
+    blocks, or the moments'), and under ``seq_shard`` where the model's
+    sequence ``seq`` (when given) does not split over ``model``."""
     if zero_stage not in (0, 1, 2, 3):
         raise ValueError(f"zero_stage={zero_stage}: the stages are 0-3")
+    levers = dict(remat=remat, attn_block=attn_block, zero_stage=zero_stage,
+                  seq_shard=seq_shard, kv_seq_shard=kv_seq_shard)
     if mesh is None:
-        return ParallelCfg(rules=DEFAULT_RULES, remat=remat,
-                           attn_block=attn_block, zero_stage=zero_stage)
+        return ParallelCfg(rules=DEFAULT_RULES, **levers)
+    msize = mesh.shape.get("model", 1)
+    if seq_shard and seq is not None and seq % msize:
+        raise ValueError(f"seq_shard: the sequence of {seq} does not split "
+                         f"over model={msize}")
     par = ParallelCfg(mesh=mesh, rules=auto_rules(cfg, mesh, zero_stage),
-                      remat=remat, attn_block=attn_block,
-                      zero_stage=zero_stage)
+                      **levers)
     for d in tree_leaves(model_defs(cfg)):
         for rules in (par.effective_rules(), par.moment_rules()):
             try:
@@ -132,20 +146,28 @@ def _batch_axes_for(B: int, mesh: MeshShape) -> tuple[str, ...] | None:
 
 
 def batch_pspecs(cfg: ArchConfig, shape: str | ShapeCfg, mesh: MeshShape,
-                 rules: ShardingRules) -> dict[str, tuple]:
-    """Each ``input_specs`` key's mesh axes per dimension."""
+                 rules: ShardingRules, kv_seq_shard: bool = False
+                 ) -> dict[str, tuple]:
+    """Each ``input_specs`` key's mesh axes per dimension.
+    ``kv_seq_shard``: a KV cache's window over ``"model"`` where its kv
+    heads do not divide the axis and the window does (the reference's
+    decode lever: llava-34b at decode_32k, 32 GB a chip -> 2 GB)."""
     sc = SHAPES[shape] if isinstance(shape, str) else shape
-    return {k: _key_pspec(k, s.shape, mesh)
+    return {k: _key_pspec(k, s.shape, mesh, kv_seq_shard)
             for k, s in input_specs(cfg, sc).items()}
 
 
-def _key_pspec(k: str, shape: tuple, mesh: MeshShape) -> tuple:
+def _key_pspec(k: str, shape: tuple, mesh: MeshShape,
+               kv_seq_shard: bool = False) -> tuple:
     msize = mesh.shape.get("model", 1)
     if not shape:                             # scalars (pos)
         return ()
     if k in ("k_cache", "v_cache", "enc_out", "enc_out_v"):
         bt = _batch_axes_for(shape[1], mesh)  # [L, B, W|S, KVH, dh]
         kv = "model" if _div(shape[3], msize) else None
+        if (kv_seq_shard and kv is None and k in ("k_cache", "v_cache")
+                and _div(shape[2], msize)):
+            return (None, bt, "model", None, None)
         return (None, bt, None, kv, None)
     if k == "ssm_state":                      # [L, B, H, P, N]
         bt = _batch_axes_for(shape[1], mesh)
@@ -172,20 +194,28 @@ def batch_shard(batch: dict, cfg: ArchConfig, par: ParallelCfg) -> dict:
     """This rank's block of every key of a global ``batch`` (the model's
     inputs in ``input_specs`` keys), as views: batch dims by
     ``batch_pspecs``, caches as the layers hold them (the module
-    docstring).  The identity without a mesh."""
+    docstring).  The identity without a mesh.  Raises a ``ValueError``
+    where ``par.kv_window_sharded`` and a KV window does not split over
+    ``model``."""
     mesh = par.mesh
     if mesh is None:
         return batch
     out = {}
     for k, t in batch.items():
-        spec = _key_pspec(k, tuple(t.shape), mesh)
+        spec = _key_pspec(k, tuple(t.shape), mesh, par.kv_seq_shard)
         if not spec:
             out[k] = t
             continue
         bdim = 1 if k in ("k_cache", "v_cache", "enc_out", "enc_out_v",
                           "ssm_state", "conv_state") else 0
         t = _block(t, bdim, spec[bdim], mesh)
-        if k in ("k_cache", "v_cache", "enc_out", "enc_out_v"):
+        if k in ("k_cache", "v_cache") and par.kv_window_sharded:
+            if spec[2] != "model":
+                raise ValueError(f"kv_seq_shard: a window of {t.shape[2]} "
+                                 f"slots does not split over model="
+                                 f"{par.model_axis_size}")
+            t = _block(t, 2, ("model",), mesh)
+        elif k in ("k_cache", "v_cache", "enc_out", "enc_out_v"):
             _, _, k0, k1 = head_blocks(cfg, par)
             t = t[:, :, :, k0:k1]
         elif k == "ssm_state":

@@ -23,10 +23,16 @@ batch rows over the whole vocabulary and the rank's caches.  At ZeRO
 stage 3 (the reference trains its big cells and serves its 1 T cells
 there) the embedding, final norm and unembedding are gathered over the
 data axes as each forward starts (:func:`_top`), each layer's weights as
-the layer starts (``families.block_apply``).
+the layer starts (``families.block_apply``).  Under ``seq_shard``
+(``loss`` and ``prefill``; the counterpart of the reference's
+constraint on the embedding's output) the decoder's residual stream holds
+this rank's block of the sequence from the embedding to the final norm;
+the loss reads the sequence gathered again, the prefill the last
+position.  The encoder and decode run on whole sequences.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -41,7 +47,9 @@ from repro_torch.models.layers import (cast, chunked_ce_loss, embed_apply,
                                        sinusoidal_pos, unembed_defs)
 from repro_torch.models.params import init_params, leaf_block, \
     logical_specs
-from repro_torch.models.parallel import ParallelCfg, gather_tree, placement
+from repro_torch.models.parallel import (ParallelCfg, all_gather,
+                                         enter_model, gather_tree, own_seq,
+                                         placement, whole_seq)
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -107,12 +115,25 @@ def _decode_sinusoid(pos, B: int, d: int, device) -> torch.Tensor:
     return pe
 
 
+def _whole(par: ParallelCfg) -> ParallelCfg:
+    """``par`` without ``seq_shard``: for the encoder and decode."""
+    return dataclasses.replace(par, seq_shard=False) if par.seq_shard \
+        else par
+
+
+def _final_norm(params, cfg: ArchConfig, x, par: ParallelCfg):
+    p = (families.seq_norm(params["final_norm"], par) if par.seq_sharded
+         else params["final_norm"])
+    return norm_apply(p, x, cfg.norm, cfg.norm_eps)
+
+
 def _run_encoder(params, cfg: ArchConfig, par: ParallelCfg, frames,
                  mode: str = "prefill"):
     """The encoder over ``frames``.  The train path runs it in ``train``
     mode, so that its attention has a gradient; the reference runs it in
     ``prefill`` mode inside its loss too, where the mode only decides the
     caches (an encoder emits none)."""
+    par = _whole(par)
     x = frames.to(torch.bfloat16)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(x.shape[1], cfg.d_model, device=x.device)
@@ -131,14 +152,17 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg
     aux term comes from the replicated router, so every model rank holds
     it once."""
     params = _top(params, cfg, par)
-    x = _embed_in(params, cfg, batch, par)
+    x = own_seq(_embed_in(params, cfg, batch, par), par)
     enc = None
     if cfg.n_encoder_layers:
         enc = _run_encoder(params, cfg, par, batch["frame_embeds"], "train")
     x, _, aux = families.stack_apply(
         params["blocks"], x, cfg, par, mode="train", n_layers=cfg.n_layers,
         enc=enc)
-    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    x = _final_norm(params, cfg, x, par)
+    if par.seq_sharded:                        # the loss reads it whole
+        x = (enter_model(x, par) if par.tp_sharded("vocab")
+             else whole_seq(x, par))
     if cfg.frontend == "vision_stub":          # loss only on text positions
         x = x[:, batch["patch_embeds"].shape[1]:]
     unemb = ({"w": params["embed"]["table"].T} if cfg.tie_embeddings
@@ -170,14 +194,16 @@ def prefill_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     ``enc_out_v``).
     """
     params = _top(params, cfg, par)
-    x = _embed_in(params, cfg, batch, par)
+    x = own_seq(_embed_in(params, cfg, batch, par), par)
     enc = None
     if cfg.n_encoder_layers:
         enc = _run_encoder(params, cfg, par, batch["frame_embeds"])
     x, new_caches, _ = families.stack_apply(
         params["blocks"], x, cfg, par, mode="prefill", n_layers=cfg.n_layers,
         enc=enc)
-    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    x = _final_norm(params, cfg, x, par)
+    if par.seq_sharded:                  # the last rank's last position
+        x = all_gather(x[:, -1:], par, 1, "model")
     return _logits(params, cfg, x[:, -1], par), _caches_out(new_caches)
 
 
@@ -185,7 +211,7 @@ def decode_fn(params: dict, batch: dict, cfg: ArchConfig, par: ParallelCfg):
     """One decode step. batch: token [B,1], pos (scalar or [B]), + caches
     [L, ...].  Returns (logits [B, V], new_caches dict); the input caches
     are left as they were."""
-    params = _top(params, cfg, par)
+    params, par = _top(params, cfg, par), _whole(par)
     x = _embed_in(params, cfg, batch, par, decode=True)
     if cfg.pos == "sinusoidal":
         pe = _decode_sinusoid(batch["pos"], x.shape[0], cfg.d_model,
@@ -262,8 +288,11 @@ class Model(_Tree):
         return loss.detach(), dict(zip(params, grads))
 
     @torch.no_grad()
-    def prefill(self, batch: dict):
-        return prefill_fn(self.tree(), batch, self.cfg, self.par)
+    def prefill(self, batch: dict, par: ParallelCfg | None = None):
+        """``prefill_fn`` under ``self.par``, or ``par`` (the same mesh
+        and rules with other levers: the engine's whole-batch prefill)."""
+        return prefill_fn(self.tree(), batch, self.cfg,
+                          self.par if par is None else par)
 
     @torch.no_grad()
     def decode(self, batch: dict):

@@ -28,7 +28,24 @@ and the output projection is row-parallel (``layers.row_parallel``).
 Replicated weights that the local heads read (the kv projections when
 only q heads shard, the qk norms) take their gradient's sum over the
 model ranks (``copy_to_model``).  When ``heads`` is replicated (25 heads
-on an even axis) the sub-layer runs whole on every rank.
+on an even axis) the sub-layer runs whole on every rank.  Under
+``seq_shard`` the sub-layer reads the sequence gathered from the ranks'
+blocks and returns this rank's block (``parallel.enter_model`` /
+``leave_model``, or ``whole_seq`` / ``own_seq`` when it runs whole).
+
+Under ``kv_seq_shard`` where kv heads do not divide ``model``
+(``ParallelCfg.kv_window_sharded``) a decode cache holds this rank's
+block of the window's slots for every kv head (``launch.sharding``
+cuts it), and a prefill emits every kv head's cache, whole, for the
+engine or ``batch_shard`` to cut.  :func:`decode_window_block` writes
+the new K/V on the rank that owns slot ``pos % W``, attends each rank's
+slots for every head (the q heads all-gathered over ``model`` first when
+they are split), and combines the partial softmaxes over ``model``: an
+all-reduce of the max, then of the sum of the exponentials (so that the
+probabilities are normalised before their bf16 rounding, as
+:func:`decode_step` rounds them), then of the outputs, in float32.  That
+reassociates the sums: allclose to :func:`decode_step`, not bit for
+bit.
 """
 from __future__ import annotations
 
@@ -38,10 +55,14 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_rope, cast, row_parallel
+from repro_torch.models.layers import (apply_rope, cast, out_product,
+                                       row_parallel)
 from repro_torch.models.params import ParamDef
-from repro_torch.models.parallel import (ParallelCfg, batch_spec, constrain,
-                                         copy_to_model)
+from repro_torch.models.parallel import (ParallelCfg, all_gather,
+                                         all_reduce_max, batch_spec,
+                                         constrain, copy_to_model,
+                                         enter_model, own_seq, sum_no_grad,
+                                         whole_seq)
 
 NEG_INF = -1e30
 
@@ -262,6 +283,47 @@ def decode_step(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
     return out.to(q.dtype), k_cache, v_cache
 
 
+@torch.no_grad()
+def decode_window_block(q: torch.Tensor, new_k: torch.Tensor,
+                        new_v: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, pos, window: int,
+                        par: ParallelCfg):
+    """:func:`decode_step` with the caches' window split over ``model``:
+    ``k_cache`` / ``v_cache`` [B, W / model, K, h] are this rank's block
+    of slots ``m * W / model ...``; q [B,1,K,G,h] every head.  Returns
+    (out [B,1,K,G,h], k_cache, v_cache), the out on every rank."""
+    B, Wl = k_cache.shape[0], k_cache.shape[1]
+    dev = q.device
+    n, m = par.model_axis_size, par.model_index
+    W = Wl * n
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    pos = torch.as_tensor(pos, device=dev).to(torch.int64).expand(B)
+    idx = pos % W if window else torch.clamp_max(pos, W - 1)
+    own = (idx // Wl == m)[:, None, None]
+    local = torch.clamp(idx - m * Wl, 0, Wl - 1)
+    lane = torch.arange(B, device=dev)
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    k_cache[lane, local] = torch.where(own, new_k[:, 0].to(k_cache.dtype),
+                                       k_cache[lane, local])
+    v_cache[lane, local] = torch.where(own, new_v[:, 0].to(v_cache.dtype),
+                                       v_cache[lane, local])
+    slots = m * Wl + torch.arange(Wl, device=dev)
+    valid = slots[None, :] <= pos[:, None]
+    if window:
+        valid = valid | (pos[:, None] >= W)
+    s = torch.einsum("bqkgh,bwkh->bkgqw", q.float(), k_cache.float()) * scale
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    # The softmax over every rank's slots: the max and the sum of the
+    # exponentials over model, so that p is normalised before its bf16
+    # rounding, as decode_step rounds it; then the outputs' sum.
+    mx = all_reduce_max(s.amax(-1), par)                   # [B,K,G,1]
+    p = torch.exp(s - mx[..., None])
+    p = p / sum_no_grad(p.sum(-1), par)[..., None]
+    out = torch.einsum("bkgqw,bwkh->bqkgh", p.to(v_cache.dtype).float(),
+                       v_cache.float())                    # [B,1,K,G,h]
+    return sum_no_grad(out, par).to(q.dtype), k_cache, v_cache
+
+
 # ---------------------------------------------------------------------------
 # Full attention sub-layer.
 # ---------------------------------------------------------------------------
@@ -299,10 +361,15 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
             "as the reference's _embed_in always sets it")
     q0, q1, k0, k1 = head_blocks(cfg, par)
     tp = q1 - q0 != cfg.n_heads
+    # kv_seq_shard: the cache holds every kv head (a block of its window)
+    kv_all = (par.kv_window_sharded and kv_x is None
+              and mode in ("prefill", "decode"))
     if tp:
-        p = _local_weights(p, cfg, par, k0, k1)
-        x = copy_to_model(x, par)
+        p = _local_weights(p, cfg, par, k0, k1, kv_all)
+        x = enter_model(x, par)
         kv_x = None if kv_x is None else copy_to_model(kv_x, par)
+    else:
+        x = whole_seq(x, par)
     H, KVH, dh = q1 - q0, k1 - k0, cfg.head_dim
     G = H // KVH
     B, S, _ = x.shape
@@ -333,7 +400,17 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     q = constrain(q, par, hspec)
 
     new_cache = None
-    if mode == "decode":
+    if kv_all:                         # k, v hold every kv head
+        k_all, v_all = k, v
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    if mode == "decode" and kv_all:
+        qa = all_gather(q, par, 2, "model") if tp else q
+        out, kc, vc = decode_window_block(
+            qa.reshape(B, S, cfg.n_kv_heads, -1, dh), k_all, v_all,
+            cache["k"], cache["v"], pos, cfg.attn_window, par)
+        new_cache = {"k": kc, "v": vc}
+        out = out.reshape(B, S, cfg.n_heads, dh)[:, :, q0:q1]
+    elif mode == "decode":
         out, kc, vc = decode_step(q.reshape(B, S, KVH, G, dh), k, v,
                                   cache["k"], cache["v"], pos,
                                   window=cfg.attn_window)
@@ -353,6 +430,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
                      causal=causal, window=cfg.attn_window if causal else 0,
                      block=par.attn_block).transpose(1, 2)
         W = cfg.attn_window
+        if kv_all:
+            k, v = k_all, v_all
         if mode == "train":
             pass                                   # no cache to emit
         elif not causal:
@@ -375,22 +454,26 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         y = row_parallel(out.reshape(B, S, H * dh), wo.reshape(H * dh, -1),
                          par)
     else:
-        y = out.reshape(B, S, H * dh) @ wo.reshape(H * dh, -1)
+        y = own_seq(out_product(out.reshape(B, S, H * dh),
+                                wo.reshape(H * dh, -1)), par)
     return y, new_cache
 
 
 def _local_weights(p: dict, cfg: ArchConfig, par: ParallelCfg, k0: int,
-                   k1: int) -> dict:
+                   k1: int, kv_all: bool = False) -> dict:
     """The weights the rank's heads read: the q-head weights are its
     blocks already; a replicated kv projection (only q heads shard) is
-    sliced to kv heads ``k0:k1``; replicated weights read by the local
+    sliced to kv heads ``k0:k1`` (kept whole under ``kv_all``, where the
+    cache holds every kv head); replicated weights read by the local
     heads alone take their gradient's sum over the model ranks."""
     out = dict(p)
     if not par.tp_sharded("kv_heads"):
         for name in ("wk", "wv", "bk", "bv"):
             if name in p:
                 w = copy_to_model(p[name], par)
-                out[name] = w[:, k0:k1] if name[0] == "w" else w[k0:k1]
+                if not kv_all:
+                    w = w[:, k0:k1] if name[0] == "w" else w[k0:k1]
+                out[name] = w
     for name in ("q_norm", "k_norm"):
         if name in p:
             out[name] = copy_to_model(p[name], par)

@@ -16,7 +16,11 @@ summed output.  At ZeRO stage 3 each layer gathers its own weights over
 the data axes as it starts (``parallel.gather_tree``), inside its remat
 in train mode: under ``full`` the whole weights live only while the layer
 runs, and the backward's recompute gathers them again (FSDP's per-layer
-unit).
+unit).  Under ``seq_shard`` the residual stream between the sublayers
+holds this rank's block of the sequence: the norms and residual adds run
+on it (a norm's scale, read by the block alone, takes its gradient's sum
+over the model ranks), each sublayer gathers the sequence it reads and
+returns the block of its output.
 Parameters are stacked with a leading layer axis, as in the reference;
 :func:`stack_apply` is a Python loop over it (the reference's
 ``scan_layers=False`` path), each layer under the remat policy in train
@@ -24,6 +28,7 @@ mode (:func:`_remat`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -36,7 +41,8 @@ from repro_torch.models.layers import mlp_apply, mlp_defs, norm_apply, \
     norm_defs
 from repro_torch.models.params import ParamDef, logical_specs, \
     tree_map_defs
-from repro_torch.models.parallel import ParallelCfg, gather_tree
+from repro_torch.models.parallel import (ParallelCfg, TpOut, copy_to_model,
+                                         gather_tree, in_sublayer_output)
 
 
 def stack_defs(defs, n_layers: int):
@@ -81,6 +87,9 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     the rank's blocks; those split over the data axes are gathered first
     (the expert bank is left to ``moe_apply``)."""
     p = gather_tree(p, block_logical(cfg), par)
+    if par.seq_sharded:
+        p = {k: seq_norm(v, par) if k.startswith("norm") else v
+             for k, v in p.items()}
     aux = torch.zeros((), device=x.device)
     new_cache: dict = {}
     kind, eps = cfg.norm, cfg.norm_eps
@@ -134,6 +143,12 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     return x + y, new_cache, aux
 
 
+def seq_norm(p: dict, par: ParallelCfg) -> dict:
+    """A norm's weights under ``seq_shard``: read by the rank's block of
+    the sequence, so their gradients are summed over the model ranks."""
+    return {k: copy_to_model(v, par) for k, v in p.items()}
+
+
 def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
@@ -161,25 +176,52 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _save_tp_out(ctx, op, *args, **kwargs):
+    """Keeps the product that makes a sublayer's output
+    (``parallel.sublayer_output``)."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op in _DOTS and in_sublayer_output()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+def _tp_out_contexts():
+    """The forward's and the recompute's contexts of one layer under
+    ``tp_out``: the sublayers' output products kept (a selective
+    checkpoint), and their sums over ``model`` kept and handed back
+    (``parallel.TpOut``)."""
+    memo = TpOut()
+    fwd, rec = create_selective_checkpoint_contexts(_save_tp_out)
+    return _both(fwd, memo.saving()), _both(rec, memo.replaying())
+
+
 def _remat(fn, par: ParallelCfg):
     """``fn`` under the train mode's recompute policy (the counterpart of
     the reference's ``_remat``): ``none`` keeps every activation; ``full``
     keeps only the layer's inputs and recomputes its forward in the
     backward; ``dots`` also keeps the outputs of the products with no
-    batch dims.  ``tp_out`` saves the tensor-parallel all-reduce outputs,
-    which one card does not have: it is not ported."""
+    batch dims; ``tp_out`` keeps each tensor-parallel sublayer's output
+    (attention, the SSM mixer, MLP or MoE: its output product and that
+    product's sum over ``model``) and recomputes the rest, so that the
+    backward's recompute sums nothing over ``model`` again.  All four
+    give the same loss and gradients, bit for bit."""
     if par.remat == "none":
         return fn
     if par.remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
-    if par.remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_dots))
-    raise ValueError(f"remat {par.remat!r}: the port has none, full and "
-                     "dots (tp_out saves tensor-parallel all-reduce outputs; "
-                     "one card has none)")
+    if par.remat in ("dots", "tp_out"):
+        context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                        _save_dots)
+                      if par.remat == "dots" else _tp_out_contexts)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    raise ValueError(f"remat {par.remat!r}: the policies are none, full, "
+                     "dots and tp_out")
 
 
 def stack_apply(stacked: dict, x: torch.Tensor, cfg: ArchConfig,

@@ -13,7 +13,11 @@ out, its partial products summed in f32 and rounded once
 ids, zeroes the others and sums over ``model``; the loss on vocab-sharded
 logits takes the logsumexp from an all-reduced max and sum-exp and the
 gold logit from the rank that owns the label.  The padded vocabulary
-columns count in the logsumexp, as in the reference.
+columns count in the logsumexp, as in the reference.  Under ``seq_shard``
+a sharded MLP reads the sequence gathered from the ranks' blocks and
+reduce-scatters its output back to them (``parallel.enter_model`` /
+``leave_model``); an unsharded one reads it whole and keeps its block
+(``whole_seq`` / ``own_seq``).
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
 from repro_torch.models.parallel import (ParallelCfg, all_reduce_max,
-                                         copy_to_model, reduce_from_model,
-                                         sum_no_grad)
+                                         copy_to_model, enter_model,
+                                         leave_model, own_seq,
+                                         reduce_from_model, sublayer_output,
+                                         sum_no_grad, whole_seq)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -136,23 +142,36 @@ def activation(h: torch.Tensor, act: str) -> torch.Tensor:
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, par: ParallelCfg
                  ) -> torch.Tensor:
-    """``x @ w`` over a contracted dimension split across the model
-    ranks: each rank's partial product in f32, summed over ``model`` and
-    rounded once to x's dtype."""
-    return reduce_from_model(matmul_f32(x, w), par).to(x.dtype)
+    """A sublayer's output ``x @ w`` over a contracted dimension split
+    across the model ranks: each rank's partial product in f32, summed
+    over ``model`` (or reduce-scattered over the sequence under
+    ``seq_shard``) and rounded once to x's dtype."""
+    with sublayer_output():
+        partial = matmul_f32(x, w)
+    return leave_model(partial, par).to(x.dtype)
+
+
+def out_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output ``x @ w`` where nothing is split (marked for
+    remat ``tp_out``, as :func:`row_parallel`'s product is)."""
+    with sublayer_output():
+        return x @ w
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str,
               par: ParallelCfg | None = None) -> torch.Tensor:
     sharded = par is not None and par.tp_sharded("mlp")
     if sharded:
-        x = copy_to_model(x, par)
+        x = enter_model(x, par)
+    elif par is not None:
+        x = whole_seq(x, par)
     w_in = cast(p["w_in"])
     h = (x @ w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
     h = activation(h, act)
     if sharded:
         return row_parallel(h, cast(p["w_out"]), par)
-    return h @ cast(p["w_out"])
+    y = out_product(h, cast(p["w_out"]))
+    return y if par is None else own_seq(y, par)
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +240,8 @@ def chunked_ce_loss(unembed: dict, h: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"chunked_ce_loss: {n_chunks} chunks of {chunk} "
                          f"do not cover S={S}")
     vocab = par is not None and par.tp_sharded("vocab")
-    if vocab:
-        h = copy_to_model(h, par)
+    if vocab and not par.seq_sharded:   # under seq_shard the caller
+        h = copy_to_model(h, par)       # gathered h (enter_model)
     tot = torch.zeros((), device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
     for c0 in range(0, S, chunk):

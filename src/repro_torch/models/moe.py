@@ -25,6 +25,14 @@ gathers it (``parallel.gather_from_data``), as ``_moe_ep`` does (so the
 gather moves bf16), on either route; the gradient comes back as the
 rank's block of the float32 sum over data.
 
+Under ``seq_shard`` the layer reads the sequence gathered from the
+ranks' blocks (the router and the replicated dispatch whole, the
+expert-parallel dispatch and the shared experts through
+``parallel.enter_model`` on that one gather) and reduce-scatters its
+output back to them.  ``par.batch_shards`` is 1 where every data rank
+holds the same batch (the engine's one-request prefill): the capacity
+and the slot ranks are then one rank's.
+
 ``moe_ref`` is the dense oracle (every expert on every token); with a
 capacity factor large enough to drop nothing, :func:`moe_apply` matches it.
 """
@@ -40,8 +48,10 @@ from repro_torch.models.layers import (activation, cast, matmul_f32,
                                        row_parallel)
 from repro_torch.models.params import ParamDef
 from repro_torch.models.parallel import (ParallelCfg, copy_to_model,
-                                         data_dim, gather_from_data,
-                                         reduce_from_model, sum_no_grad)
+                                         data_dim, enter_model,
+                                         gather_from_data, leave_model,
+                                         own_seq, sublayer_output,
+                                         sum_no_grad, whole_seq)
 
 def moe_defs(cfg: ArchConfig) -> dict:
     E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -183,7 +193,7 @@ def aux_loss(probs: torch.Tensor, ids: torch.Tensor, n_experts: int,
     tokens' part of ``p_e``."""
     pe = probs.reshape(-1, n_experts).mean(0)
     fe = _counts(ids.reshape(-1).long(), n_experts).float()
-    if par is not None and par.data_size > 1:
+    if par is not None and par.batch_shards > 1:
         pe = pe / par.data_size
         fe = sum_no_grad(fe, par, par.batch_axes)
     fe = fe / torch.clamp_min(fe.sum(), 1.0)
@@ -191,18 +201,24 @@ def aux_loss(probs: torch.Tensor, ids: torch.Tensor, n_experts: int,
 
 
 def _shared(p: dict, x: torch.Tensor, act: str,
-            par: ParallelCfg | None = None) -> torch.Tensor:
+            par: ParallelCfg | None = None,
+            whole: torch.Tensor | None = None) -> torch.Tensor:
     """The shared experts' dense FFN on every token (column- then
-    row-parallel where the rules shard ``mlp``)."""
+    row-parallel where the rules shard ``mlp``); under ``seq_shard``
+    ``x`` is the rank's block and ``whole`` the gathered sequence."""
     tp = par is not None and par.tp_sharded("mlp")
     if tp:
-        x = copy_to_model(x, par)
+        x = enter_model(x, par, whole)
+    elif whole is not None:
+        x = whole
     w_in = cast(p["shared_in"])
     h = _mm(x, w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
     h = activation(h, act).to(x.dtype)
     if tp:
         return row_parallel(h, cast(p["shared_out"]), par)
-    return _mm(h, cast(p["shared_out"]))
+    with sublayer_output():
+        y = _mm(h, cast(p["shared_out"]))
+    return y if par is None else own_seq(y, par)
 
 
 def ep_plan(n_tokens: int, cfg: ArchConfig, par: ParallelCfg
@@ -216,13 +232,13 @@ def ep_plan(n_tokens: int, cfg: ArchConfig, par: ParallelCfg
         e_local = E // par.model_axis_size
         return (par.model_index * e_local, e_local,
                 _capacity(n_tokens, k, E, cf))
-    return 0, E, _capacity(n_tokens * par.data_size, k, E, cf)
+    return 0, E, _capacity(n_tokens * par.batch_shards, k, E, cf)
 
 
 def _data_offset(ids: torch.Tensor, E: int, par: ParallelCfg):
     """Each expert's slots on the data ranks before this one (None when
-    there is one data rank)."""
-    if par.data_size == 1:
+    the batch is not split over data ranks)."""
+    if par.batch_shards == 1:
         return None
     rows = ids.new_zeros((par.data_size, E), dtype=torch.int64)
     rows[par.data_index] = _counts(ids.reshape(-1).long(), E)
@@ -242,7 +258,9 @@ def _expert_bank(p: dict, key: str, cfg: ArchConfig, par: ParallelCfg
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (y [B, S, D], aux_loss scalar)."""
+    """x [B, S, D] -> (y [B, S, D], aux_loss scalar); under ``seq_shard``
+    x and y are the rank's blocks of the sequence."""
+    xb, x = x, whole_seq(x, par)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     x2d = x.reshape(-1, D)
@@ -254,15 +272,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg
         y = _dispatch_compute(x2d, ids, wgt, w_in, w_out, e_first=0,
                               e_local=E, capacity=cap, act=cfg.act,
                               offset=_data_offset(ids, E, par))
+        y = own_seq(y.reshape(B, S, D), par)
     else:       # the reference's _moe_ep
-        y = _dispatch_compute(copy_to_model(x2d, par),
+        xe = enter_model(xb, par, x if par.seq_sharded else None)
+        y = _dispatch_compute(xe.reshape(-1, D),
                               ids, copy_to_model(wgt, par), w_in, w_out,
                               e_first=e_first, e_local=e_local, capacity=cap,
                               act=cfg.act)
-        y = reduce_from_model(y.float(), par).to(x2d.dtype)
-    y = y.reshape(B, S, D)
+        y = leave_model(y.float().reshape(B, S, D), par).to(x2d.dtype)
     if cfg.n_shared_experts:
-        y = y + _shared(p, x, cfg.act, par)
+        y = y + _shared(p, xb, cfg.act, par, x if par.seq_sharded else None)
     return y, aux
 
 

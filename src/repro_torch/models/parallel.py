@@ -9,7 +9,12 @@ logical-to-mesh ``rules``, the ZeRO stage and the perf levers:
 (``attention.flash_unrolled``), which the CPU runs and the train mode's
 backward recomputes (the card's kernel tiles itself); ``remat`` the train
 mode's per-layer recompute policy (``families._remat``); ``loss_chunk``
-the sequence chunk of the cross-entropy.
+the sequence chunk of the cross-entropy; ``seq_shard`` cuts the residual
+stream over the sequence on ``model`` in train and prefill (the
+reference's ``act_seq="model"``); ``kv_seq_shard`` cuts a decode KV
+cache's window over ``model`` where its kv heads do not divide it (the
+reference's ``batch_pspecs(kv_seq_shard=True)``, a parameter of the
+batch specs there and of the model here, whose decode must know it).
 
 Sharding is by construction, not by annotation: each rank holds only its
 block of every sharded dimension (``params.shard_params``,
@@ -52,6 +57,28 @@ dimension, over the data axes):
 * :func:`all_gather` and :func:`reduce_scatter`, the plain collectives
   under both (AdamW all-gathers a stage 1-2 leaf's updated blocks).
 
+Under ``seq_shard`` (:attr:`ParallelCfg.seq_sharded`) the residual
+stream holds this rank's block of the sequence, and the sublayers meet it
+through four entries, each ``copy_to_model``, ``reduce_from_model`` or
+the identity without the lever:
+
+* :func:`enter_model`: where a sharded sublayer would ``copy_to_model``,
+  the forward all-gathers the sequence over ``model``; the backward
+  reduce-scatters the partial gradients back to the blocks, in float32;
+* :func:`leave_model`: where it would ``reduce_from_model``, the forward
+  reduce-scatters the float32 partial products over the sequence; the
+  backward all-gathers the gradient;
+* :func:`whole_seq` and :func:`own_seq`, the same all-gather with a
+  slice for the other leg, for what a rank computes whole (replicated
+  heads, the SSM's B/C stream, the router): its input gathered, its
+  gradient (whole on every rank) sliced; its output sliced, its gradient
+  gathered.
+
+Under remat ``tp_out`` (``families._remat``) the sums over ``model`` of
+the sublayer outputs (``reduce_from_model``, ``leave_model``) are kept
+from the forward (:class:`TpOut`) and handed back to the recompute
+instead of being summed again.
+
 One route per collective: ``all_reduce``, ``all_gather`` and
 ``reduce_scatter`` of ``torch.distributed`` on the axis's gloo group,
 with the tensor where it lies (gloo stages a CUDA tensor through the host
@@ -62,11 +89,13 @@ bf16.  Every collective counts its calls and bytes in :data:`TRAFFIC`, by
 mesh axis and op; on a counted mesh (``ProcessMesh.counted``, the dry
 run's rank 0 on ``meta``) it counts and moves nothing.  On a mesh of one
 rank, or with no mesh, each is the identity.  Not ported:
-``seq_shard``, ``scan_layers`` and ``moe_ep`` (experts sharded over
-``model`` always take the expert-parallel path).
+``scan_layers`` and ``moe_ep`` (experts sharded over ``model`` always
+take the expert-parallel path).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import time
 from typing import TYPE_CHECKING, NamedTuple
@@ -86,11 +115,15 @@ BATCH_AXES = ("pod", "data")
 class ParallelCfg:
     mesh: "ProcessMesh | None" = None   # None: one card
     rules: ShardingRules = DEFAULT_RULES
-    remat: str = "full"          # full | dots | none  (per-layer recompute)
+    remat: str = "full"          # full | dots | tp_out | none (per layer)
     attn_block: int = 2048       # flash block size (q and kv)
     loss_chunk: int = 1024       # CE loss seq chunk
     zero_stage: int = 0          # 0: replicated over data; 1: moments,
     # 2: and the expert bank, 3: every weight's embed dim over data
+    seq_shard: bool = False      # residual stream's sequence over model
+    kv_seq_shard: bool = False   # decode KV window over model
+    whole_batch: bool = False    # the batch is the same on every data
+    # rank (the engine's one-request prefill): no data rank holds a block
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
@@ -119,8 +152,25 @@ class ParallelCfg:
         return i
 
     @property
+    def batch_shards(self) -> int:
+        """The data ranks the batch is split over (1 for a whole batch)."""
+        return 1 if self.whole_batch else self.data_size
+
+    @property
     def model_index(self) -> int:
         return 0 if self.mesh is None else self.mesh.coord("model")
+
+    @property
+    def seq_sharded(self) -> bool:
+        """Whether the residual stream holds a block of the sequence."""
+        return self.seq_shard and self.model_axis_size > 1
+
+    @property
+    def kv_window_sharded(self) -> bool:
+        """Whether a decode KV cache holds a block of the window: the
+        lever is set and the kv heads do not split over ``model``."""
+        return (self.kv_seq_shard and self.model_axis_size > 1
+                and not self.tp_sharded("kv_heads"))
 
     def tp_sharded(self, logical: str) -> bool:
         """Whether the logical axis ``logical`` is split over ``model``
@@ -143,6 +193,8 @@ class ParallelCfg:
                               fsdp=("pod", "data") if stage else None)
         if stage >= 3:
             r = r.replace(embed=r.mesh_axes("fsdp"))
+        if self.seq_shard:
+            r = r.replace(act_seq="model")
         return r
 
     def effective_rules(self) -> ShardingRules:
@@ -345,10 +397,74 @@ def reduce_scatter(x: torch.Tensor, par: ParallelCfg, dim: int,
     return x
 
 
+class TpOut:
+    """The sums over ``model`` of one layer's sublayer outputs under remat
+    ``tp_out``: kept as the forward makes them, and handed back in order
+    to the backward's recompute, whose inputs to them are the forward's
+    bit for bit, so that the recompute sums nothing again."""
+
+    def __init__(self):
+        self.saved: list[torch.Tensor] = []
+        self.at: int | None = None        # the replay's place; None: saving
+
+    @contextlib.contextmanager
+    def _active(self, at):
+        self.at = at
+        token = _TP_OUT.set(self)
+        try:
+            yield
+        finally:
+            _TP_OUT.reset(token)
+
+    def saving(self):
+        return self._active(None)
+
+    def replaying(self):
+        return self._active(0)
+
+
+# The layer being run under tp_out, and whether a sublayer's output
+# product is being made: set only inside the ``with`` blocks below, in
+# the thread that runs the layer (the recompute runs in autograd's).
+_TP_OUT: contextvars.ContextVar = contextvars.ContextVar("tp_out",
+                                                         default=None)
+_OUTPUT: contextvars.ContextVar = contextvars.ContextVar("sublayer_output",
+                                                         default=False)
+
+
+@contextlib.contextmanager
+def sublayer_output():
+    """Marks the product that makes a sublayer's output (before its sum
+    over ``model``): remat ``tp_out`` keeps it (``families._save_tp_out``)."""
+    token = _OUTPUT.set(True)
+    try:
+        yield
+    finally:
+        _OUTPUT.reset(token)
+
+
+def in_sublayer_output() -> bool:
+    return _OUTPUT.get()
+
+
+def _kept(run, x: torch.Tensor) -> torch.Tensor:
+    """``run(x)``, a sum over ``model`` of a sublayer's output: under
+    ``tp_out``'s forward kept, in its recompute the kept one (moving and
+    counting nothing)."""
+    memo = _TP_OUT.get()
+    if memo is not None and memo.at is not None:
+        memo.at += 1
+        return memo.saved[memo.at - 1].detach()
+    y = run(x)
+    if memo is not None:
+        memo.saved.append(y.detach())
+    return y
+
+
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, par):
-        return _all_reduce(x, par, "model")
+        return _kept(lambda t: _all_reduce(t, par, "model"), x)
 
     @staticmethod
     def backward(ctx, g):
@@ -389,6 +505,76 @@ class _GatherFromData(torch.autograd.Function):
                 None, None)
 
 
+def _seq_block(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
+    """This model rank's block of ``x``'s sequence (dim 1)."""
+    n, S = par.model_axis_size, x.shape[1]
+    if S % n:
+        raise ValueError(f"seq_shard: a sequence of {S} does not split "
+                         f"into {n} blocks over model")
+    return x.narrow(1, par.model_index * (S // n), S // n)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the sequence all-gathered over ``model`` (or ``held[0]``,
+    that gather already made); backward: the partial gradients
+    reduce-scattered back to the blocks, in float32."""
+
+    @staticmethod
+    def forward(ctx, x, par, held):
+        ctx.par = par
+        if held:
+            return held[0].detach()
+        return _gather_one(x, par, "model", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter_one(g.float(), ctx.par, "model", 1).to(g.dtype),
+                None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Forward: the partial products summed over ``model`` and
+    reduce-scattered over the sequence; backward: the gradient
+    all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        ctx.par = par
+        return _kept(lambda t: _scatter_one(t, par, "model", 1), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_one(g, ctx.par, "model", 1), None
+
+
+class _WholeSeq(torch.autograd.Function):
+    """Forward: the sequence all-gathered over ``model``; backward: this
+    rank's block of a gradient that every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        ctx.par = par
+        return _gather_one(x, par, "model", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_block(g, ctx.par), None
+
+
+class _OwnSeq(torch.autograd.Function):
+    """Forward: this rank's block of a sequence every rank holds whole;
+    backward: the blocks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        ctx.par = par
+        return _seq_block(x, par)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_one(g, ctx.par, "model", 1), None
+
+
 def _tp(par: ParallelCfg) -> bool:
     return par.model_axis_size > 1
 
@@ -406,6 +592,57 @@ def copy_to_model(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
 def sum_over_model(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
     """The sum of every model rank's ``x``, and so of its gradient."""
     return _SumOverModel.apply(x, par) if _tp(par) else x
+
+
+def enter_model(x: torch.Tensor, par: ParallelCfg,
+                gathered: torch.Tensor | None = None) -> torch.Tensor:
+    """The input of a sublayer split over ``model``: ``x`` itself with its
+    gradient summed over the model ranks (:func:`copy_to_model`), or
+    under ``seq_shard`` the whole sequence of the blocks ``x``, its
+    gradient reduce-scattered back to them (``gathered``: that sequence,
+    already all-gathered by :func:`whole_seq`)."""
+    if par.seq_sharded:
+        return _GatherSeq.apply(x, par, [] if gathered is None
+                                else [gathered])
+    return copy_to_model(x, par)
+
+
+def leave_model(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
+    """The output of a sublayer split over ``model``: the sum of every
+    model rank's partial ``x`` (:func:`reduce_from_model`), or under
+    ``seq_shard`` this rank's block of it (a reduce-scatter over the
+    sequence, its gradient all-gathered)."""
+    if par.seq_sharded:
+        return _ScatterSeq.apply(x, par)
+    return reduce_from_model(x, par)
+
+
+class _Same(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def whole_seq(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
+    """The input of what a rank computes whole: under ``seq_shard`` the
+    sequence all-gathered, its gradient (whole on every rank) sliced back
+    to the block.  Otherwise ``x``, on a split model axis through an
+    identity node where the gather's node stands under ``seq_shard``: the
+    gradients then meet in the same order with and without it, and add
+    up to the same bits."""
+    if par.seq_sharded:
+        return _WholeSeq.apply(x, par)
+    return _Same.apply(x) if _tp(par) else x
+
+
+def own_seq(x: torch.Tensor, par: ParallelCfg) -> torch.Tensor:
+    """The output of what a rank computes whole: under ``seq_shard`` this
+    rank's block, its gradient all-gathered; otherwise ``x``."""
+    return _OwnSeq.apply(x, par) if par.seq_sharded else x
 
 
 def gather_from_data(x: torch.Tensor, par: ParallelCfg, dim: int,

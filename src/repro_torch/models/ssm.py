@@ -25,7 +25,11 @@ summed over the model ranks (``copy_to_model``).  The gated norm takes
 the mean of ``g*g`` over the whole ``d_inner``, so its sum of squares is
 summed over the model ranks before the ``rsqrt`` (a per-rank group norm
 would be another model).  A decode state holds the rank's heads; its
-conv state the rank's inner channels and the B/C channels.
+conv state the rank's inner channels and the B/C channels.  Under
+``seq_shard`` the mixer reads the sequence gathered from the ranks'
+blocks (one all-gather: the B/C stream reads it whole, the sharded
+projections through ``parallel.enter_model``) and reduce-scatters its
+output back to them.
 """
 from __future__ import annotations
 
@@ -34,10 +38,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import cast, row_parallel, silu
+from repro_torch.models.layers import cast, out_product, row_parallel, silu
 from repro_torch.models.params import ParamDef
 from repro_torch.models.parallel import (ParallelCfg, batch_spec, constrain,
-                                         copy_to_model, sum_over_model)
+                                         copy_to_model, enter_model, own_seq,
+                                         sum_over_model, whole_seq)
 
 
 def ssm_defs(cfg: ArchConfig) -> dict:
@@ -205,15 +210,15 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
     Returns (y, new_state), new_state ``{}`` in train mode."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"ssm_apply: unknown mode {mode!r}")
-    Bsz, S, D = x.shape
     c0, c1, h0, h1 = ssm_blocks(cfg, par)
     tp = c1 - c0 != cfg.d_inner
     di, G, N, H = c1 - c0, cfg.ssm_groups, cfg.ssm_state, h1 - h0
     Pd, K = cfg.ssm_headdim, cfg.ssm_conv
 
-    bc = x @ cast(p["wbc"])
-    if tp:
-        x = copy_to_model(x, par)
+    xw = whole_seq(x, par)
+    Bsz, S, D = xw.shape
+    bc = xw @ cast(p["wbc"])
+    x = enter_model(x, par, xw) if tp else xw
     z = x @ cast(p["wz"])
     xin = x @ cast(p["wx"])
     dt = x @ cast(p["wdt"])
@@ -269,4 +274,4 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, par: ParallelCfg,
         y = _gated_norm(y, z, p["norm"], cfg.norm_eps, par, cfg.d_inner)
         return row_parallel(y, cast(p["out"]), par), new_state
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    return y @ cast(p["out"]), new_state
+    return own_seq(out_product(y, cast(p["out"])), par), new_state

@@ -44,6 +44,22 @@ embeddings.  Two of the reference engine's faults are repaired or refused
 Greedy sampling is ``argmax`` over the real vocabulary; temperature
 sampling draws from a ``torch.Generator`` seeded with ``ServeConfig.seed``
 (its stream differs from ``jax.random``'s).
+
+Over a placed mesh the engine reads ``par`` from its ``Model`` (the
+counterpart of the reference's engine, which takes a ``ParallelCfg``):
+
+* the pool's ``batch_slots`` lanes are cut over the data ranks as
+  ``launch.sharding.batch_shard`` cuts a batch: each holds ``batch_slots /
+  data`` lanes' caches (a pool the data ranks do not divide raises), and,
+  under ``kv_seq_shard``, its block of each lane's KV window;
+* a one-request prefill runs on every data rank, whole
+  (``ParallelCfg.whole_batch``: the reference's ``batch_pspecs`` gives a
+  batch of one no data axis), and only the rank that holds the lane
+  inserts its caches;
+* each data rank decodes its lanes; the logits are all-gathered over the
+  data ranks, and every rank samples the whole pool with the same seeded
+  generator, so that every rank's lanes, positions and requests stay the
+  same.
 """
 from __future__ import annotations
 
@@ -55,6 +71,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.api import Model
+from repro_torch.models.parallel import all_gather
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.serve.lanes import LanePool
 
@@ -115,6 +132,14 @@ class ServeEngine:
                              f"was asked for {device}")
         self.device = model.device
         self.model, self.cfg, self.sc = model, model.cfg, sc
+        self.par = par = model.par
+        if sc.batch_slots % par.data_size:
+            raise ValueError(f"batch_slots={sc.batch_slots} does not split "
+                             f"over the {par.data_size} data ranks")
+        self._lanes_here = sc.batch_slots // par.data_size
+        self._lane0 = par.data_index * self._lanes_here
+        self._prefill_par = (dataclasses.replace(par, whole_batch=True)
+                             if par.data_size > 1 else par)
         # Host-side telemetry: read around the steps, never inside them,
         # so sampled tokens are the same with tracing on or off.  The tick
         # index is the simulation clock for trace timestamps.
@@ -134,27 +159,47 @@ class ServeEngine:
         W, M = self.cfg.attn_window, self.sc.max_len
         return min(W, M) if W else M
 
+    def _window(self) -> int:
+        """KV slots per lane on this rank: the ring, or its block under
+        ``kv_seq_shard``."""
+        W = self._ring()
+        if not self.par.kv_window_sharded:
+            return W
+        n = self.par.model_axis_size
+        if W % n:
+            raise ValueError(f"kv_seq_shard: a ring of {W} slots does not "
+                             f"split over model={n}")
+        return W // n
+
     def _init_caches(self, template: dict) -> None:
-        """Allocate the lane pool from a single-request prefill's caches:
-        KV time dims take ``_ring()`` slots, SSM/conv and cross-attention
-        caches keep their shapes."""
-        B = self.sc.batch_slots
+        """Allocate this rank's lanes of the pool from a single-request
+        prefill's caches: KV time dims take :meth:`_window` slots,
+        SSM/conv and cross-attention caches keep their shapes."""
+        B = self._lanes_here
         pool = {}
         for k, v in template.items():
             shape = (v.shape[0], B) + tuple(v.shape[2:])
             if k in KV_KEYS:
-                shape = (v.shape[0], B, self._ring()) + tuple(v.shape[3:])
+                shape = (v.shape[0], B, self._window()) + tuple(v.shape[3:])
             pool[k] = torch.zeros(shape, dtype=v.dtype, device=v.device)
         self.caches = pool
 
     def _insert(self, lane: int, caches_1: dict) -> None:
+        """Puts a prefill's caches in ``lane``, on the data rank that holds
+        it (its block of the lane's ring under ``kv_seq_shard``)."""
+        lane -= self._lane0
+        if not 0 <= lane < self._lanes_here:
+            return
         for k, v in caches_1.items():
             pool = self.caches[k]
             if k in KV_KEYS:
-                W = pool.shape[2]
-                pool[:, lane].zero_()
+                W = self._ring()
+                row = v.new_zeros((v.shape[0], W) + tuple(v.shape[3:]))
                 n = min(v.shape[2], W)
-                pool[:, lane, :n] = v[:, 0, :n]
+                row[:, :n] = v[:, 0, :n]
+                Wl = pool.shape[2]
+                pool[:, lane] = row[:, self.par.model_index * Wl:][:, :Wl] \
+                    if Wl != W else row
             else:
                 pool[:, lane] = v[:, 0]
 
@@ -202,7 +247,8 @@ class ServeEngine:
         for lane, req in self.lanes.admit(queue):
             t0 = time.perf_counter()
             logits, caches_1 = self.model.prefill(
-                self.prefill_batch(req.prompt, req.rid))
+                self.prefill_batch(req.prompt, req.rid),
+                par=self._prefill_par)
             if self.caches is None:
                 self._init_caches(caches_1)
             self._insert(lane, caches_1)
@@ -241,14 +287,17 @@ class ServeEngine:
                 self.tracer.counter("lanes_active", self._tick, len(active))
             t0 = time.perf_counter()
             # Pool decode tick: every lane advances one token at its own
-            # position (decode_step takes per-lane positions).
+            # position (decode_step takes per-lane positions); each data
+            # rank its lanes, whose logits every rank then gathers.
+            here = slice(self._lane0, self._lane0 + self._lanes_here)
             last = torch.tensor(
-                [r.out_tokens[-1] if r else 0 for r in self.lanes.payloads()],
+                [r.out_tokens[-1] if r else 0
+                 for r in self.lanes.payloads()[here]],
                 dtype=torch.int64, device=self.device)[:, None]
-            pos = torch.as_tensor(self.lane_pos, device=self.device)
+            pos = torch.as_tensor(self.lane_pos[here], device=self.device)
             logits, self.caches = self.model.decode(
                 {"token": last, "pos": pos, **self.caches})
-            toks = self._sample(logits)          # host sync
+            toks = self._sample(all_gather(logits, self.par, 0))  # host sync
             self._observe_wall("decode_wall_s", time.perf_counter() - t0)
             self.metrics.counter("ticks").inc()
             self.metrics.counter("decode_tokens").inc(len(active))

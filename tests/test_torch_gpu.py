@@ -1196,3 +1196,81 @@ def test_gather_from_data_on_the_card(cuda, tmp_path):
         assert r.pop("device") == "cuda:0"
         assert sorted(r) == ["bf16.0", "bf16.1", "f32.0", "f32.1"]
         assert all(all(v) for v in r.values()), r
+
+
+# ---------------------------------------------------------------------------
+# seq_shard's sequence gather and scatter: a 1 x 2 model fleet on the card.
+# ---------------------------------------------------------------------------
+
+SEQ_PAYLOAD = r"""
+import json
+import numpy as np
+import torch
+from repro_torch import shard
+from repro_torch.launch.mesh import MeshShape, ProcessMesh
+from repro_torch.models import parallel
+
+shard.initialize_from_env(initialization_timeout=300)
+mesh = ProcessMesh.build(MeshShape.parse("data=1,model=2"))
+par = parallel.ParallelCfg(mesh=mesh, seq_shard=True)
+dev, m = mesh.device, mesh.coord("model")
+rng = np.random.default_rng(26)
+x = torch.from_numpy(rng.standard_normal((2, 8, 6)).astype(np.float32))
+g = torch.from_numpy(rng.standard_normal((2, 2, 8, 6)).astype(np.float32))
+out = {"device": str(dev)}
+for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    xd, gd = x.to(dt), g.to(dt)
+    # gather_seq: the whole sequence; its backward the block of the sum
+    blk = xd.chunk(2, 1)[m].to(dev).requires_grad_(True)
+    y = parallel.enter_model(blk, par)
+    (gx,) = torch.autograd.grad(y, blk, gd[m].to(dev))
+    want = (gd[0].float() + gd[1].float()).to(dt).chunk(2, 1)[m]
+    out[f"gather.{name}"] = [y.is_cuda, torch.equal(y.cpu(), xd),
+                             torch.equal(gx.cpu(), want)]
+    # scatter_seq: the block of the float32 sum; its backward the whole
+    part = gd[m].float().to(dev).requires_grad_(True)
+    y = parallel.leave_model(part, par)
+    (gp,) = torch.autograd.grad(y, part, x.chunk(2, 1)[m].to(dev))
+    want = (gd[0].float() + gd[1].float()).chunk(2, 1)[m]
+    out[f"scatter.{name}"] = [y.is_cuda, torch.equal(y.cpu(), want),
+                              torch.equal(gp.cpu(), x)]
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_sequence_gather_and_scatter_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card under ``seq_shard``: the sequence
+    all-gather of CUDA blocks (float32 and bf16) is the whole tensor and
+    its backward's reduce-scatter the block of the two ranks' summed
+    gradients; the reduce-scatter of float32 partials is the block of
+    their sum and its backward's all-gather the whole gradient; bit for
+    bit, on the card."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(SEQ_PAYLOAD)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                 REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                 REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r)))
+        for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    for out, _ in outs:
+        r = json.loads(out.strip().splitlines()[-1])
+        assert r.pop("device") == "cuda:0"
+        assert sorted(r) == ["gather.bf16", "gather.f32", "scatter.bf16",
+                             "scatter.f32"]
+        assert all(all(v) for v in r.values()), r

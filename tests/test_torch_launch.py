@@ -487,12 +487,16 @@ def test_run_cell_records(tmp_path, monkeypatch):
 
 def test_overrides_take_only_keys_the_port_reads(capsys):
     """The reference's policy keys that nothing in the port reads are
-    recorded, but an override of one is refused, by the API and the CLI."""
+    recorded, but an override of one is refused, by the API and the CLI;
+    the sequence levers ``seq_shard`` and ``kv_seq_shard`` are read, and
+    overridden."""
     cfg = configs.get("qwen1.5-0.5b")
     pol = dryrun.cell_policy(cfg, "train_4k", MeshShape.card(),
-                             {"attn_block": 1024, "kv_seq_shard": True})
-    assert pol["attn_block"] == 1024 and pol["seq_shard"] is False
-    for key in ("seq_shard", "scan_layers", "moe_ep", "ar_barrier", "kind"):
+                             {"attn_block": 1024, "kv_seq_shard": True,
+                              "seq_shard": True})
+    assert pol["attn_block"] == 1024 and pol["seq_shard"] is True
+    assert pol["kv_seq_shard"] is True
+    for key in ("scan_layers", "moe_ep", "ar_barrier", "kind"):
         with pytest.raises(ValueError, match=key):
             dryrun.cell_policy(cfg, "train_4k", MeshShape.card(),
                                {key: True})

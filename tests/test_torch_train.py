@@ -185,13 +185,13 @@ def test_raw_entries_still_refuse_grad():
 
 @pytest.mark.parametrize("arch", configs.ALL_ARCHS)
 def test_remat_policies_bitwise(arch):
-    """``none``, ``full`` and ``dots`` give the same loss and gradients,
-    bit for bit, on the CPU."""
+    """``none``, ``full``, ``dots`` and ``tp_out`` give the same loss and
+    gradients, bit for bit, on the CPU."""
     cfg = configs.get(arch).reduced()
     batch = materialize(cfg, "train_4k", seq=64, device="cpu")
     out = {r: build_model(cfg, "cpu", seed=0,
                           par=ParallelCfg(remat=r)).loss(batch)
-           for r in ("none", "full", "dots")}
+           for r in ("none", "full", "dots", "tp_out")}
     l0, g0 = out["none"]
     for remat, (loss, grads) in out.items():
         assert _same(loss, l0), remat
@@ -212,12 +212,14 @@ class _CountMM(TorchDispatchMode):
 def test_dots_saves_the_products():
     """``dots`` keeps the products with no batch dims: its backward runs
     no more of them than ``none``'s, which keeps every activation, and
-    fewer than ``full``'s, which recomputes them.  ``tp_out`` is
-    refused."""
+    fewer than ``full``'s, which recomputes them.  ``tp_out`` keeps each
+    sublayer's output product (on one card there is no sum over
+    ``model`` to keep): it recomputes fewer than ``full`` and no fewer
+    than ``none``."""
     cfg = configs.get("qwen1.5-0.5b").reduced()
     batch = materialize(cfg, "train_4k", seq=64, device="cpu")
     counts = {}
-    for remat in ("none", "full", "dots"):
+    for remat in ("none", "full", "dots", "tp_out"):
         model = build_model(cfg, "cpu", seed=0, par=ParallelCfg(remat=remat))
         params = dict(model.named_parameters())
         for p in params.values():
@@ -227,9 +229,7 @@ def test_dots_saves_the_products():
             torch.autograd.grad(loss, list(params.values()))
         counts[remat] = mode.n
     assert counts["none"] == counts["dots"] < counts["full"], counts
-    model = build_model(cfg, "cpu", par=ParallelCfg(remat="tp_out"))
-    with pytest.raises(ValueError, match="tp_out"):
-        model.loss(batch)
+    assert counts["none"] <= counts["tp_out"] < counts["full"], counts
 
 
 @pytest.mark.parametrize("remat, runs", [("none", 1), ("full", 2)])
