@@ -820,30 +820,31 @@ def layer_phase(dev, wall_s: float) -> None:
 def profile_busy(label: str, fn) -> None:
     """Wall time, device busy time and the heaviest kernels of one call of
     ``fn``, from a ``torch.profiler`` trace (kernels only, overlapping
-    intervals merged), and the host and device time of its
-    ``repro_torch.*`` ranges."""
+    intervals merged), and the host wall of the program's ``repro_torch.*``
+    spans in it, from its span ring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.obs import spans_between
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0_ns = time.time_ns()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.name, e.time_range.start, e.time_range.end)
-               for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("repro_torch.")]
+               for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not report_kernels(label, kernels, wall_ms):
         return
-    for e in prof.key_averages():
-        if e.key.startswith("repro_torch.") and e.cpu_time_total > 0:
-            dev_ms = (getattr(e, "device_time_total", None)
-                      or getattr(e, "cuda_time_total", 0)) / 1e3
-            print(f"  {e.key}: {dev_ms:.3f} ms device, "
-                  f"{e.cpu_time_total / 1e3:.3f} ms host", flush=True)
+    walls: dict[str, list] = {}
+    for s in spans_between(t0_ns, time.time_ns()) or ():
+        walls.setdefault(s.name, []).append(s.end_ns - s.start_ns)
+    for name, ns in walls.items():
+        print(f"  {name}: {sum(ns) / 1e6:.3f} ms host, {len(ns)} spans",
+              flush=True)
 
 
 def report_kernels(label: str, kernels: list, wall_ms: float,

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.instance import PackedInstance, aligned, bcast_lead
 from repro_torch.core.objectives import task_durations
 
@@ -75,7 +76,7 @@ def sgs(inst: PackedInstance, prio: torch.Tensor,
     """
     if machine_rule not in MACHINE_RULES:
         raise ValueError(f"unknown machine_rule {machine_rule!r}")
-    with torch.profiler.record_function("repro_torch.sgs"):
+    with obs.span("repro_torch.sgs", steps=inst.T, rule=machine_rule):
         lead = tuple(prio.shape[:-1])
         T, M = inst.T, inst.M
         dev = prio.device
@@ -140,7 +141,7 @@ def timing_sweep(inst: PackedInstance, start: torch.Tensor,
     Each step scores every start ``s`` in ``[0, H]`` for every row — a
     ``[*lead, H+1]`` pass, as in the reference.
     """
-    with torch.profiler.record_function("repro_torch.timing_sweep"):
+    with obs.span("repro_torch.timing_sweep", steps=sweeps * inst.T):
         lead = tuple(start.shape[:-1])
         T = inst.T
         H = cum.shape[-1] - 1

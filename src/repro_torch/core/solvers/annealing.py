@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.decoder import take_at, take_row, upward_rank
 from repro_torch.core.instance import PackedInstance, bcast_lead
 from repro_torch.core.solvers import common
@@ -63,7 +64,7 @@ def solve_sa(inst: PackedInstance, cum: torch.Tensor,
     and ``frozen`` line up with it.  ``frozen`` (bool ``[..., T]``) marks
     tasks whose priorities are never perturbed.
     """
-    with torch.profiler.record_function("repro_torch.solve_sa"):
+    with obs.span("repro_torch.solve_sa"):
         lead = inst.lead
         T, pop = inst.T, cfg.pop
         L = lead + (pop,)

@@ -23,6 +23,7 @@ from typing import NamedTuple, Protocol, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.decoder import sgs, timing_sweep
 from repro_torch.core.instance import PackedInstance, bcast_lead
 from repro_torch.core.objectives import (Objectives, energy, evaluate,
@@ -241,14 +242,16 @@ def decode_full(inst: PackedInstance, cum: torch.Tensor,
                 machine_rule: str = "fixed", sweeps: int = 2,
                 frozen: torch.Tensor | None = None) -> ScheduleResult:
     """Candidates ``[*lead, T]`` -> feasible schedules + objective values."""
-    dec = sgs(inst, prio, assign, machine_rule=machine_rule)
-    start = dec.start
-    if objective != "makespan" and sweeps > 0:
-        start = timing_sweep(inst, start, dec.assign, cum, deadline, sweeps,
-                             frozen=frozen)
-    obj: Objectives = evaluate(inst, start, dec.assign, cum)
-    return ScheduleResult(start, dec.assign, obj.makespan, obj.energy,
-                          obj.carbon, utilization(inst, start, dec.assign))
+    with obs.span("repro_torch.decode_full"):
+        dec = sgs(inst, prio, assign, machine_rule=machine_rule)
+        start = dec.start
+        if objective != "makespan" and sweeps > 0:
+            start = timing_sweep(inst, start, dec.assign, cum, deadline,
+                                 sweeps, frozen=frozen)
+        obj: Objectives = evaluate(inst, start, dec.assign, cum)
+        return ScheduleResult(start, dec.assign, obj.makespan, obj.energy,
+                              obj.carbon, utilization(inst, start,
+                                                      dec.assign))
 
 
 def fitness_of(inst: PackedInstance, res: ScheduleResult,
@@ -283,7 +286,8 @@ def population_fitness(inst: PackedInstance, cum: torch.Tensor,
     """
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
-    with torch.profiler.record_function("repro_torch.population_fitness"):
+    with obs.span("repro_torch.population_fitness", objective=objective,
+                  rows=math.prod(prio.shape[:-1])):
         dec = sgs(inst, prio, assign, machine_rule=machine_rule)
         if objective == "makespan":
             return makespan(inst, dec.start, dec.assign).to(torch.float32)
@@ -292,9 +296,8 @@ def population_fitness(inst: PackedInstance, cum: torch.Tensor,
             start = timing_sweep(inst, start, dec.assign, cum, deadline,
                                  sweeps, frozen=frozen)
         carb = ops.population_carbon(inst, start, dec.assign, cum)
-        with torch.profiler.record_function("repro_torch.total_violations"):
-            pen = VIOLATION_PENALTY * total_violations(
-                inst, start, dec.assign, deadline).to(torch.float32)
+        pen = VIOLATION_PENALTY * total_violations(
+            inst, start, dec.assign, deadline).to(torch.float32)
         if objective == "carbon":
             return carb + pen
         return energy(inst, dec.assign) + ENERGY_CARBON_TIEBREAK * carb + pen

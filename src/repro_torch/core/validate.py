@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.instance import PackedInstance, aligned, bcast_lead
 
 _MACHINE_WEIGHT = 10**6  # one disallowed assignment >> any epoch mass
@@ -112,9 +113,10 @@ def total_violations(inst: PackedInstance, start: torch.Tensor,
                      ) -> torch.Tensor:
     """Violation mass (0 == feasible); machine violations weighted so a
     single disallowed assignment dominates any epoch-mass term."""
-    r = violation_report(inst, start, assign, deadline)
-    return (r.arrival + r.precedence + r.machine * _MACHINE_WEIGHT
-            + r.overlap + r.budget)
+    with obs.span("repro_torch.total_violations"):
+        r = violation_report(inst, start, assign, deadline)
+        return (r.arrival + r.precedence + r.machine * _MACHINE_WEIGHT
+                + r.overlap + r.budget)
 
 
 def total_violations_batch(insts: PackedInstance, start, assign,

@@ -13,7 +13,10 @@ and load it after.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
-that it went through the kernels.  The kernels are forward-only:
+that it went through the kernels.  :func:`load` records a
+``repro_torch.kernel_load`` span (``kernel``, ``built``) the first time it
+loads a library, so a process shows whether it paid ``nvcc`` or only
+loaded a library.  The kernels are forward-only:
 :func:`refuse_grad` is every wrapper's guard against an input that would
 need a gradient through one.
 """
@@ -31,6 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from repro_torch import obs
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
@@ -140,6 +145,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            # built: no library was there, so this process compiled it or
+            # waited for another's build of it.
+            built = not library_path(name).exists()
+            with obs.span("repro_torch.kernel_load", kernel=name,
+                          built=built):
+                lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib

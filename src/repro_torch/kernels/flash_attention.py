@@ -127,8 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    with torch.profiler.record_function("repro_torch.flash_attention"):
-        if kcost.ACTIVE:
-            return kcost.counted(NAME, lambda: cost(q, k, v, causal, window),
-                                 _run, q, k, v, causal, window, block)
-        return _run(q, k, v, causal, window, block)
+    if kcost.ACTIVE:
+        return kcost.counted(NAME, lambda: cost(q, k, v, causal, window),
+                             _run, q, k, v, causal, window, block)
+    return _run(q, k, v, causal, window, block)

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.objectives import carbon_from_delta, task_durations
 from repro_torch.kernels import ref
@@ -47,7 +48,7 @@ def population_carbon(inst: PackedInstance, starts: torch.Tensor,
     ``objectives.carbon`` on the same tensors bitwise ("select in the
     kernel, combine in the wrapper").
     """
-    with torch.profiler.record_function("repro_torch.population_carbon"):
+    with obs.span("repro_torch.population_carbon"):
         B = math.prod(inst.lead)
         T = starts.shape[-1]
         dur = task_durations(inst, assigns)
@@ -76,23 +77,22 @@ def gate_threshold(intensity: torch.Tensor, theta, window,
     below takes the live ``theta``, so the gradient ``diff * (n - 1)`` is
     the plain path's, bit for bit.
     """
-    with torch.profiler.record_function("repro_torch.gate_threshold"):
-        dev = intensity.device
-        E = intensity.shape[-1]
-        theta = torch.as_tensor(theta, dtype=torch.float32,
-                                device=dev).expand(intensity.shape)
-        window = torch.as_tensor(window, dtype=torch.int32,
-                                 device=dev).expand(intensity.shape[:-1])
-        a, b, n = (x.view(intensity.shape) for x in gate_quantile_stats(
-            intensity.reshape(-1, E).contiguous(),
-            theta.detach().reshape(-1, E).contiguous(),
-            window.reshape(-1).contiguous(), max_window))
-        vi = theta * (n - 1).to(torch.float32)
-        gamma = vi - torch.floor(vi)
-        diff = b - a
-        # np.quantile's _lerp switches formula at gamma >= 0.5 for accuracy.
-        return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
-                           a + diff * gamma)
+    dev = intensity.device
+    E = intensity.shape[-1]
+    theta = torch.as_tensor(theta, dtype=torch.float32,
+                            device=dev).expand(intensity.shape)
+    window = torch.as_tensor(window, dtype=torch.int32,
+                             device=dev).expand(intensity.shape[:-1])
+    a, b, n = (x.view(intensity.shape) for x in gate_quantile_stats(
+        intensity.reshape(-1, E).contiguous(),
+        theta.detach().reshape(-1, E).contiguous(),
+        window.reshape(-1).contiguous(), max_window))
+    vi = theta * (n - 1).to(torch.float32)
+    gamma = vi - torch.floor(vi)
+    diff = b - a
+    # np.quantile's _lerp switches formula at gamma >= 0.5 for accuracy.
+    return torch.where(gamma >= 0.5, b - diff * (1.0 - gamma),
+                       a + diff * gamma)
 
 
 

@@ -150,8 +150,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    with torch.profiler.record_function("repro_torch.ssd_scan"):
-        if kcost.ACTIVE:
-            return kcost.counted(NAME, lambda: cost(x, dt, A, Bm, Cm, chunk),
-                                 _run, x, dt, A, Bm, Cm, chunk)
-        return _run(x, dt, A, Bm, Cm, chunk)
+    if kcost.ACTIVE:
+        return kcost.counted(NAME, lambda: cost(x, dt, A, Bm, Cm, chunk),
+                             _run, x, dt, A, Bm, Cm, chunk)
+    return _run(x, dt, A, Bm, Cm, chunk)

@@ -149,7 +149,7 @@ class CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func.namespace == "profiler":      # record_function marks
+        if func.namespace == "profiler":      # torch's own range marks
             return func(*args, **kwargs)
         packet = func._overloadpacket
         if not self.quiet and packet not in flop_registry:

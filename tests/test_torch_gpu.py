@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import bench
+from repro_torch import bench, obs
 from repro_torch.core import objectives
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.solvers import (SAConfig, TorchDraws, common,
@@ -1274,3 +1274,24 @@ def test_sequence_gather_and_scatter_on_the_card(cuda, tmp_path):
         assert sorted(r) == ["gather.bf16", "gather.f32", "scatter.bf16",
                              "scatter.f32"]
         assert all(all(v) for v in r.values()), r
+
+
+def test_timed_records_device_ms_without_waiting(cuda):
+    """``Tracer.timed`` on the card: the span ends when the call returns,
+    with the call's work still queued, and the result's CUDA event pair
+    gives ``args.device_ms`` once the log is read."""
+    tr = obs.Tracer()
+    x = torch.ones(4, device=cuda)
+    torch.cuda.synchronize()
+
+    def slow(a):
+        torch.cuda._sleep(200_000_000)      # ~0.1 s of spinning on the card
+        return a + 1
+
+    out = tr.timed("f", slow, x)
+    assert not torch.cuda.current_stream().query()   # not waited for
+    (e,) = [e for e in tr.events if e["name"] == "xla:f"]
+    assert torch.cuda.current_stream().query()       # reading waited
+    assert e["args"]["first_call"] is True
+    assert e["args"]["device_ms"] > e["wall_dur"] * 1e3 > 0
+    assert torch.equal(out, x + 1)
