@@ -624,6 +624,10 @@ def main_path(dev) -> dict:
           f"schedule_eval launched {launches.get('schedule_eval', 0)} times "
           f"on the main path, expected {want} (phase 2: init + "
           f"{cfg.iters} iterations + migrations)")
+    check(launches.get("timing_sweep", 0) == want + 2,
+          f"timing_sweep launched {launches.get('timing_sweep', 0)} times "
+          f"on the main path, expected {want + 2} (one a phase-2 fitness "
+          "call, and the final and fallback decodes)")
     for k in ("opt_makespan", "carbon_savings", "energy_savings",
               "baseline_carbon", "optimized_carbon", "utilization"):
         check(r[k].shape == (INSTANCES,) and np.all(np.isfinite(r[k])),
@@ -639,7 +643,8 @@ def main_path(dev) -> dict:
     row = bench.summarize(r)
     print(f"main path: run_batch {INSTANCES} instances, {cfg}: "
           f"{r['seconds']:.3f} s wall; schedule_eval launches "
-          f"{launches.get('schedule_eval', 0)}; peak device memory "
+          f"{launches.get('schedule_eval', 0)}, timing_sweep launches "
+          f"{launches.get('timing_sweep', 0)}; peak device memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
     print("main path summary: " + json.dumps(row), flush=True)
     stamp = {**bench.device_stamp(dev), "triton":
@@ -806,6 +811,33 @@ def layer_phase(dev, wall_s: float) -> None:
           f"{wall_s:.3f} s run_batch wall; the rest is the SA loop, the "
           "final decodes and host overhead", flush=True)
 
+    # The timing sweep kernel beside its plain version, at the layer's
+    # shape and at the benchmark cell's [250, 96, 40].
+    from repro_torch.core.instance import PackedInstance
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.timing_sweep import cost as sweep_cost
+    for B in (INSTANCES, 250):
+        sub = PackedInstance(*(f[:B] for f in batch))
+        args = (sub, dec.start[:B], dec.assign[:B], cum[:B], deadline[:B],
+                cfg.sweeps)
+        got = decoder.timing_sweep(*args)
+        check(torch.equal(got, decoder.timing_sweep_plain(*args)),
+              f"timing_sweep at B={B}: the kernel's starts differ from the "
+              "plain version's")
+        ms = time_cuda(lambda: decoder.timing_sweep(*args), 10)
+        device = device_kernel_ms(lambda: decoder.timing_sweep(*args),
+                                  "timing_sweep_kernel")
+        plain_ms = time_cuda(lambda: decoder.timing_sweep_plain(*args), 3)
+        _, nbytes = sweep_cost(dec.start[:B].reshape(-1, batch.T),
+                               sub.pred, cum[:B], deadline[:B])
+        bound_ms = kcost.bound_s(0, nbytes)[0] * 1e3
+        print(f"  timing_sweep at [{B}, {cfg.pop}, {batch.T}], H="
+              f"{cum.shape[-1] - 1}, {cfg.sweeps} sweeps: kernel {ms:.4f} ms "
+              f"({bound_ms / ms:.5f} of the bound; device "
+              f"{json.dumps(device)}), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.6f} ms ({nbytes / 1e6:.3f} MB at 3.35 "
+              "TB/s), library: none; starts equal", flush=True)
+
     # Device busy share over one evaluation of each phase, from the trace.
     profile_busy("one phase-1 fitness evaluation",
                  lambda: common.population_fitness(
@@ -873,7 +905,7 @@ def report_kernels(label: str, kernels: list, wall_ms: float,
               f"{len(ts)} launches", flush=True)
     for name, ts in by_name.items():        # the port's own kernels
         if any(k in name for k in ("gate_slide", "schedule_delta",
-                                   "flash_", "ssd_")):
+                                   "flash_", "ssd_", "timing_sweep")):
             print(f"  port kernel {name[:70]}: {sum(ts) / 1e3:.3f} ms, "
                   f"{len(ts)} launches", flush=True)
     return True
@@ -4973,7 +5005,7 @@ def main() -> int:
     print("launches by path: " + json.dumps(
         {name: {k: r["launches"].get(k, 0)
                 for k in ("schedule_eval", "gate_quantile",
-                          "flash_attention", "ssd_scan")}
+                          "flash_attention", "ssd_scan", "timing_sweep")}
          for name, r in paths.items()}), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

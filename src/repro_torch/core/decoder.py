@@ -6,7 +6,9 @@ vector ``prio[T]`` plus, optionally, a machine assignment ``assign[T]``.
 then shifts tasks later inside their slack windows to chase low-carbon
 periods.  Where the reference runs a ``lax.scan`` over tasks per candidate
 under ``vmap``, these functions loop over the T task steps in Python and
-advance every candidate row ``[*lead]`` (e.g. ``[B, Pop]``) together.
+advance every candidate row ``[*lead]`` (e.g. ``[B, Pop]``) together; on
+CUDA tensors the timing sweep is instead one launch of a hand-written
+kernel that runs every step of every row.
 
 Exactness against the reference: the first-index tie rule of
 ``argmax``/``argmin`` holds in torch too, and the sweep order uses a
@@ -21,6 +23,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.instance import PackedInstance, aligned, bcast_lead
 from repro_torch.core.objectives import task_durations
+from repro_torch.kernels import timing_sweep as sweep_kernel
 
 BIG = 1 << 28
 
@@ -138,54 +141,71 @@ def timing_sweep(inst: PackedInstance, start: torch.Tensor,
     final before it moves and a sweep preserves feasibility.
 
     ``frozen`` (optional bool ``[*instance_lead, T]``) pins tasks in place.
-    Each step scores every start ``s`` in ``[0, H]`` for every row — a
-    ``[*lead, H+1]`` pass, as in the reference.
+    On CUDA tensors one launch of the ``timing_sweep`` kernel
+    (:mod:`repro_torch.kernels.timing_sweep`) runs every sweep of every
+    row, scanning only each task's slack window; on CPU tensors the plain
+    version :func:`timing_sweep_plain` runs; on ``meta`` tensors the
+    output's shape and dtype come back.  The starts are equal bit for bit.
     """
     with obs.span("repro_torch.timing_sweep", steps=sweeps * inst.T):
-        lead = tuple(start.shape[:-1])
-        T = inst.T
-        H = cum.shape[-1] - 1
-        dev = start.device
-        a = aligned(inst, lead)
-        d = task_durations(inst, assign)
-        real = a.task_mask
-        sweepable = real if frozen is None else \
-            real & ~bcast_lead(frozen, lead, 1)
-        svec = torch.arange(H + 1, device=dev)
-        same_m = ((assign[..., :, None] == assign[..., None, :])
-                  & real[..., None, :])
-        succ = bcast_lead(inst.pred.transpose(-1, -2)
-                          & inst.task_mask[..., None, :], lead, 2)
-        c = bcast_lead(cum, lead, 1)
-        dl = bcast_lead(torch.as_tensor(deadline, device=dev)
-                        .to(torch.int32), lead)
-        tix = torch.arange(T, dtype=torch.int32, device=dev)
+        if start.device.type == "cpu":
+            return timing_sweep_plain(inst, start, assign, cum, deadline,
+                                      sweeps, frozen)
+        return sweep_kernel.timing_sweep(inst, start, assign, cum, deadline,
+                                         sweeps, frozen)
 
-        for _ in range(sweeps):
-            # Freeze the sequence key for this sweep: (start, idx) descending.
-            key = start * T + tix
-            order = torch.argsort(-torch.where(real, key, -BIG), dim=-1,
-                                  stable=True)                  # pads last
-            start = start.clone()
-            for j in range(T):
-                t = order[..., j]
-                dt = take_at(d, t)
-                succ_cap = torch.where(take_row(succ, t), start,
-                                       BIG).amin(-1)
-                after = (take_row(same_m, t)
-                         & (key > take_at(key, t).unsqueeze(-1)))
-                mnext_cap = torch.where(after, start, BIG).amin(-1)
-                hi = torch.minimum(torch.minimum(succ_cap, mnext_cap), dl) - dt
-                lo = take_at(start, t)
-                idx = (svec + dt.unsqueeze(-1)).clamp_max(H)
-                cost = torch.gather(c, -1, idx) - c
-                window = ((svec >= lo.unsqueeze(-1))
-                          & (svec <= hi.unsqueeze(-1)))
-                s_star = torch.where(window, cost, float("inf")).argmin(-1)
-                movable = take_at(sweepable, t) & (hi >= lo)
-                _put(start, t,
-                     torch.where(movable, s_star.to(torch.int32), lo))
-        return start
+
+def timing_sweep_plain(inst: PackedInstance, start: torch.Tensor,
+                       assign: torch.Tensor, cum: torch.Tensor,
+                       deadline: torch.Tensor | int, sweeps: int = 2,
+                       frozen: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`timing_sweep`'s plain version, on any device: ``T x sweeps``
+    steps, each scoring every start ``s`` in ``[0, H]`` for every row — a
+    ``[*lead, H+1]`` pass, as in the reference."""
+    lead = tuple(start.shape[:-1])
+    T = inst.T
+    H = cum.shape[-1] - 1
+    dev = start.device
+    a = aligned(inst, lead)
+    d = task_durations(inst, assign)
+    real = a.task_mask
+    sweepable = real if frozen is None else \
+        real & ~bcast_lead(frozen, lead, 1)
+    svec = torch.arange(H + 1, device=dev)
+    same_m = ((assign[..., :, None] == assign[..., None, :])
+              & real[..., None, :])
+    succ = bcast_lead(inst.pred.transpose(-1, -2)
+                      & inst.task_mask[..., None, :], lead, 2)
+    c = bcast_lead(cum, lead, 1)
+    dl = bcast_lead(torch.as_tensor(deadline, device=dev)
+                    .to(torch.int32), lead)
+    tix = torch.arange(T, dtype=torch.int32, device=dev)
+
+    for _ in range(sweeps):
+        # Freeze the sequence key for this sweep: (start, idx) descending.
+        key = start * T + tix
+        order = torch.argsort(-torch.where(real, key, -BIG), dim=-1,
+                              stable=True)                  # pads last
+        start = start.clone()
+        for j in range(T):
+            t = order[..., j]
+            dt = take_at(d, t)
+            succ_cap = torch.where(take_row(succ, t), start,
+                                   BIG).amin(-1)
+            after = (take_row(same_m, t)
+                     & (key > take_at(key, t).unsqueeze(-1)))
+            mnext_cap = torch.where(after, start, BIG).amin(-1)
+            hi = torch.minimum(torch.minimum(succ_cap, mnext_cap), dl) - dt
+            lo = take_at(start, t)
+            idx = (svec + dt.unsqueeze(-1)).clamp_max(H)
+            cost = torch.gather(c, -1, idx) - c
+            window = ((svec >= lo.unsqueeze(-1))
+                      & (svec <= hi.unsqueeze(-1)))
+            s_star = torch.where(window, cost, float("inf")).argmin(-1)
+            movable = take_at(sweepable, t) & (hi >= lo)
+            _put(start, t,
+                 torch.where(movable, s_star.to(torch.int32), lo))
+    return start
 
 
 def upward_rank(inst: PackedInstance) -> torch.Tensor:

@@ -11,10 +11,15 @@
                   every attention layer's prefill)
   ssd_scan      — the Mamba2 SSD chunk scan (CUDA, ``csrc/ssd_scan.cu``;
                   ``ops.ssd_scan``, every SSM layer's prefill)
+  timing_sweep  — the carbon timing sweep of candidate schedules (CUDA,
+                  ``csrc/timing_sweep.cu``; ``core.decoder.timing_sweep``
+                  on CUDA tensors; it replaces no TPU kernel)
 
 Each kernel: its CUDA source under ``csrc/``, a wrapper module that
 checks its inputs, launches it and counts launches (``build.LAUNCHES``),
-a plain version in ``ref.py``, and a public op in ``ops.py``.
+a plain version in ``ref.py`` (the timing sweep's is
+``core.decoder.timing_sweep_plain``), and a public op in ``ops.py`` (the
+timing sweep's is ``core.decoder.timing_sweep``).
 """
 from repro_torch.kernels.build import LAUNCHES, reset_launches
 from repro_torch.kernels.ops import (flash_attention, gate_threshold,

@@ -7,12 +7,14 @@ dependencies (``--noconftest``: ``tests/conftest.py`` imports JAX):
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import bench, obs
-from repro_torch.core import objectives
+from repro_torch.core import decoder, objectives
 from repro_torch.core.instance import PackedInstance
 from repro_torch.core.solvers import (SAConfig, TorchDraws, common,
                                       solve_bilevel_batch)
@@ -27,6 +29,8 @@ from repro_torch.kernels.gate_quantile import gate_quantile_stats
 from repro_torch.kernels.ref import (gate_quantile_stats_ref,
                                      schedule_delta_ref)
 from repro_torch.kernels.schedule_eval import schedule_delta
+from repro_torch.scenarios import (FAMILY_NAMES, FLEET_NAMES, ScenarioConfig,
+                                   pack_aligned, sample_instance)
 
 pytestmark = pytest.mark.gpu
 
@@ -1295,3 +1299,154 @@ def test_timed_records_device_ms_without_waiting(cuda):
     assert e["args"]["first_call"] is True
     assert e["args"]["device_ms"] > e["wall_dur"] * 1e3 > 0
     assert torch.equal(out, x + 1)
+
+
+# ---------------------------------------------------------------------------
+# The timing sweep kernel against its plain version on the same CUDA
+# inputs: bit for bit, one launch a call.
+# ---------------------------------------------------------------------------
+
+def _sweep_same(inst, start, assign, cum, deadline, frozen=None, sweeps=2):
+    """The kernel's starts (one launch) equal the plain version's; returns
+    them."""
+    reset_launches()
+    got = decoder.timing_sweep(inst, start, assign, cum, deadline, sweeps,
+                               frozen=frozen)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("timing_sweep", 0) == 1
+    want = decoder.timing_sweep_plain(inst, start, assign, cum, deadline,
+                                      sweeps, frozen=frozen)
+    assert got.dtype == torch.int32 and got.shape == start.shape
+    assert torch.equal(got, want)
+    return got
+
+
+def _random_cum(dev, lead, H, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cum = torch.zeros(tuple(lead) + (H + 1,), device=dev)
+    cum[..., 1:] = torch.cumsum(
+        torch.rand(tuple(lead) + (H,), generator=g, device=dev), dim=-1)
+    return cum
+
+
+@functools.lru_cache(maxsize=1)
+def _cell_case(dev):
+    """The benchmark cell's sweep input: 250 paper instances, phase 1 (SA,
+    makespan, earliest finish) for a real OPT, and 96 candidates an
+    instance around its schedule (SGS, fixed servers)."""
+    from repro_torch.core.solvers.annealing import solve_sa
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=250), dev)
+    draws = TorchDraws(11, dev)
+    p1 = solve_sa(batch, cum, 1 << 27, draws, objective="makespan",
+                  machine_rule="earliest_finish",
+                  cfg=SAConfig(pop=96, iters=20, migrate_every=5))
+    base = common.decode_full(batch, cum, 1 << 27, p1.prio, p1.assign,
+                              objective="makespan",
+                              machine_rule="earliest_finish", sweeps=0)
+    prio = (-base.start.to(torch.float32)[:, None]
+            + 3.0 * draws.normal((250, 96, batch.T)))
+    other = common.random_allowed_assign(draws, batch, (96,))
+    assign = torch.where(draws.bernoulli(0.1, (250, 96, batch.T)), other,
+                         base.assign[:, None])
+    dec = decoder.sgs(batch, prio, assign, "fixed")
+    return batch, cum, base.makespan, dec
+
+
+@pytest.mark.parametrize("stretch", [1.0, 1.5, 2.0])
+def test_timing_sweep_cell_shape_bitwise(cuda, stretch):
+    """``[250, 96, 40]``, H = 1500, deadlines S x OPT from a phase-1
+    solve."""
+    batch, cum, opt, dec = _cell_case(cuda)
+    deadline = torch.floor(stretch * opt.to(torch.float32) + 1e-6) \
+        .to(torch.int32)
+    got = _sweep_same(batch, dec.start, dec.assign, cum, deadline)
+    assert not torch.equal(got, dec.start)
+
+
+@pytest.mark.parametrize("family", FAMILY_NAMES)
+@pytest.mark.parametrize("frozen", [False, True])
+def test_timing_sweep_scenarios_bitwise(cuda, family, frozen):
+    """Padded batches of every family over the fleets, ``frozen`` off and
+    on."""
+    seed = 40 + FAMILY_NAMES.index(family)
+    rng = np.random.default_rng(seed)
+    insts = [sample_instance(rng, ScenarioConfig(
+        family=family, n_jobs=4, width=2, depth=3, n_machines=4,
+        fleet=FLEET_NAMES[i % len(FLEET_NAMES)])) for i in range(6)]
+    batch = pack_aligned(insts, device=cuda)
+    B, T = batch.lead[0], batch.T
+    cum = _random_cum(cuda, (B,), 400, seed)
+    draws = TorchDraws(seed, cuda)
+    prio = draws.normal((B, 24, T))
+    assign = common.random_allowed_assign(draws, batch, (24,))
+    dec = decoder.sgs(batch, prio, assign, "fixed")
+    deadline = draws.randint(100, 400, (B,)).to(torch.int32)
+    fz = (batch.task_mask & draws.bernoulli(0.3, (B, T))) if frozen else None
+    got = _sweep_same(batch, dec.start, dec.assign, cum, deadline, fz)
+    if frozen:
+        assert torch.equal(torch.where(fz[:, None], got, 0),
+                           torch.where(fz[:, None], dec.start, 0))
+
+
+def test_timing_sweep_deadlines_bitwise(cuda):
+    """Int and per-instance deadlines, ``1 << 27`` (windows past H), and a
+    row whose windows lie wholly beyond H (their tasks start at 0, as the
+    plain version's argmin over all +inf gives)."""
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=16), cuda)
+    draws = TorchDraws(3, cuda)
+    prio = draws.normal((16, 32, batch.T))
+    assign = common.random_allowed_assign(draws, batch, (32,))
+    dec = decoder.sgs(batch, prio, assign, "fixed")
+    far = torch.full((16,), 1 << 27, dtype=torch.int32, device=cuda)
+    for deadline in (120, 1 << 27, draws.randint(60, 200, (16,))
+                     .to(torch.int32), far):
+        _sweep_same(batch, dec.start, dec.assign, cum, deadline)
+
+    one = PackedInstance(*(f[0] for f in batch))
+    H = cum.shape[-1] - 1
+    start = (H + 1 + 100 * torch.arange(one.T, device=cuda)) \
+        .to(torch.int32)[None]
+    got = _sweep_same(one, start, dec.assign[0, :1], cum[0], 1 << 27)
+    assert bool((got[0][one.task_mask] == 0).any())
+
+
+@pytest.mark.parametrize("lead", ["instance", "decode_full", "nested"])
+def test_timing_sweep_leads_bitwise(cuda, lead):
+    """Instance lead () with candidates (5,); lead [B] (``decode_full``'s
+    ``[B, T]``); instance lead (2,) with candidates (2, 4)."""
+    batch, cum = bench.paper_batch(bench.BenchSetup(instances=6), cuda)
+    if lead == "instance":
+        inst, c, cand = PackedInstance(*(f[0] for f in batch)), cum[0], (5,)
+    elif lead == "decode_full":
+        inst, c, cand = batch, cum, ()
+    else:
+        inst = PackedInstance(*(f[:2] for f in batch))
+        c, cand = cum[:2], (2, 4)
+    draws = TorchDraws(5, cuda)
+    prio = draws.normal(inst.lead + cand + (inst.T,))
+    assign = common.random_allowed_assign(draws, inst, cand)
+    dec = decoder.sgs(inst, prio, assign, "fixed")
+    for deadline in (150, torch.full(inst.lead, 180, dtype=torch.int32,
+                                     device=cuda)):
+        _sweep_same(inst, dec.start, dec.assign, c, deadline)
+
+
+@pytest.mark.parametrize("n_jobs,k_tasks", [(10, 7), (9, 5)])
+def test_timing_sweep_many_tasks_bitwise(cuda, n_jobs, k_tasks):
+    """T = 70 (successor masks of three words) and T = 45 (not a multiple
+    of 32); shared and per-row ``cum`` and ``frozen``, as the MPC passes
+    them."""
+    setup = bench.BenchSetup(n_jobs=n_jobs, k_tasks=k_tasks, instances=4,
+                             heterogeneous=True)
+    batch, cum = bench.paper_batch(setup, cuda)
+    T = batch.T
+    draws = TorchDraws(7, cuda)
+    prio = draws.normal((4, 12, T))
+    assign = common.random_allowed_assign(draws, batch, (12,))
+    dec = decoder.sgs(batch, prio, assign, "fixed")
+    _sweep_same(batch, dec.start, dec.assign, cum, 1 << 27)
+    scale = torch.linspace(0.5, 1.5, 12, device=cuda)[None, :, None]
+    rows_cum = cum[:, None] * scale
+    fz = batch.task_mask[:, None] & (dec.start < 60)
+    _sweep_same(batch, dec.start, dec.assign, rows_cum, 400, fz)
